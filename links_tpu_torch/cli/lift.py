@@ -1,0 +1,154 @@
+"""Batch 2D->3D lifting inference, the serving surface (counterpart of
+links_tpu/cli/lift.py).
+
+Inputs:
+  * ``--data``: a dataset pickle; the test split is normalized as eval does, or
+  * ``--raw-2d``: a .npy/.npz of already-normalized (N, 34) poses.
+
+``--fused`` runs both side lifters as one launch of the hand-written CUDA
+kernel (ops/fused_infer.py; bf16 multiplies, chunks of at most 512 poses).
+
+Output: ``--out`` .npz with ``poses_3d`` (N, 3, 17) and the ``poses_2d``
+echo, plus one JSON summary line on stdout (count, wall time, poses/sec).
+
+Example:
+    python -m links_tpu_torch.cli.lift --data data/h36m_data.pkl \\
+        --left-pt models/left_lifter.pt --right-pt models/right_lifter.pt \\
+        --fused --out pred.npz
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from links_tpu_torch.cli import _common as C
+from links_tpu_torch.core.nn import BF16, F32
+
+
+def _load_raw_2d(path: str) -> np.ndarray:
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            key = "poses_2d" if "poses_2d" in z else list(z.keys())[0]
+            arr = z[key]
+    else:
+        arr = np.load(path)
+    arr = np.asarray(arr, np.float32)
+    if arr.ndim == 3 and arr.shape[1:] == (2, 17):
+        arr = arr.reshape(-1, 34)
+    if arr.ndim != 2 or arr.shape[1] != 34:
+        raise SystemExit(
+            f"--raw-2d must be (N, 34) or (N, 2, 17) normalized 2D poses, "
+            f"got {arr.shape}")
+    return arr
+
+
+def _chunked(fn, poses_2d: np.ndarray, batch: int, device) -> np.ndarray:
+    """Run ``fn`` over chunks of at most ``batch`` poses; copying each result
+    back to the host waits for the device."""
+    outs = [fn(torch.from_numpy(poses_2d[i:i + batch]).to(device)).cpu()
+            for i in range(0, poses_2d.shape[0], batch)]
+    return torch.cat(outs).numpy()
+
+
+def add_serving_flags(parser):
+    parser.add_argument("--mode", choices=["left_right", "leg_torso"],
+                        default="left_right")
+    parser.add_argument("--choice", choices=["left", "right"], default="right")
+    parser.add_argument("--depth", type=float, default=10.0)
+    parser.add_argument("--scenario", default=None,
+                        help="occluded-limb completer infill (not yet ported)")
+    parser.add_argument("--fused", action="store_true",
+                        help="left_right mode: run both side lifters as one "
+                             "launch of the fused CUDA kernel (bf16 multiplies, "
+                             "chunked at <=512 poses)")
+    parser.add_argument("--quant", choices=["int8", "int8-static"], default=None,
+                        help="int8 serving weights (not yet ported)")
+    parser.add_argument("--policy", choices=["f32", "bf16"], default="f32",
+                        help="serving matmul dtype: bf16 multiplies with f32 "
+                             "accumulation, or the eval-parity f32 default")
+
+
+def build_serving_fn(args, batch: int, device):
+    """The serving forward the flags describe and its per-call batch cap."""
+    from links_tpu_torch.objectives.lifter import lift_left_right_eval, lift_leg_torso_eval
+
+    if args.scenario or args.quant:
+        raise SystemExit(
+            "--scenario and --quant are not yet ported to links_tpu_torch; "
+            "serve them with links_tpu.cli.lift")
+    if args.fused and args.mode != "left_right":
+        raise SystemExit("--fused covers the plain left_right forward only; "
+                         "it cannot serve --mode leg_torso")
+    policy = BF16 if args.policy == "bf16" else F32
+    if args.mode == "leg_torso":
+        legs, torso = C.load_leg_torso(args, device)
+        return (lambda p2d: lift_leg_torso_eval(legs, torso, p2d, args.depth, policy),
+                batch)
+    stacked = C.load_stacked_lr(args, device)
+    if args.fused:
+        from links_tpu_torch.ops.fused_infer import (
+            MAX_BATCH,
+            lift_left_right_eval_fused,
+            prepare_fused_weights,
+        )
+
+        prep = prepare_fused_weights(stacked)
+        return (lambda p2d: lift_left_right_eval_fused(prep, p2d, args.depth, args.choice),
+                min(batch, MAX_BATCH))
+    return (lambda p2d: lift_left_right_eval(stacked, p2d, args.depth, args.choice, policy),
+            batch)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Batch 2D->3D pose lifting (serving path, PyTorch port)")
+    add_serving_flags(parser)
+    parser.add_argument("--raw-2d", default=None,
+                        help=".npy/.npz of normalized (N,34) 2D poses; "
+                             "bypasses the dataset loader")
+    parser.add_argument("--out", required=True, help="output .npz path")
+    parser.add_argument("--limit", type=int, default=None,
+                        help="lift only the first N poses")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to compute on (cuda, cuda:1, cpu)")
+    C.add_common_flags(parser)
+    C.add_lr_pt_flags(parser)
+    args = parser.parse_args(argv)
+    device = C.resolve_device(args.device)
+
+    if args.raw_2d:
+        poses_2d = _load_raw_2d(args.raw_2d)
+    else:
+        poses_2d = C.load_test(args).poses_2d.numpy()
+    if args.limit:
+        poses_2d = poses_2d[: args.limit]
+    n = poses_2d.shape[0]
+    if n == 0:
+        raise SystemExit("no poses to lift: the input is empty")
+    batch = min(args.batch_size or 256, n)
+
+    with torch.inference_mode():
+        fn, batch = build_serving_fn(args, batch, device)
+        _chunked(fn, poses_2d[:batch], batch, device)  # warm up (kernel build, allocator)
+        t0 = time.perf_counter()
+        pred = _chunked(fn, poses_2d, batch, device)
+        dt = time.perf_counter() - t0
+
+    pred_3d = pred.reshape(n, 3, 17)
+    np.savez_compressed(args.out, poses_3d=pred_3d, poses_2d=poses_2d)
+    print(json.dumps({
+        "poses": n, "batch": batch, "mode": args.mode, "quant": args.quant,
+        "scenario": args.scenario, "seconds": round(dt, 4),
+        "poses_per_sec": round(n / dt, 1) if dt > 0 else None,
+        "out": args.out,
+    }))
+    return pred_3d
+
+
+if __name__ == "__main__":
+    main()
