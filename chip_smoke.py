@@ -3,17 +3,24 @@
     python chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build every CUDA kernel of the serving lift from the sources in the
-     checkout (nvcc, sm_90a);
+  1. build every CUDA kernel of the port from the sources in the checkout
+     (nvcc, sm_90a, one process per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     full model width (two 11-joint side lifters, hidden 1024, weights from
-     a seeded torch.Generator) and the batches the serving path gives it;
-  3. drive the main path through its entry point, ``links_tpu_torch.cli.lift``
-     (--fused, --policy bf16 and the f32 default) on a synthetic test split,
-     and check that --fused went through the kernel and agrees with the
-     plain bf16 lift;
-  4. time each kernel, its plain version, a library yardstick (the same
-     forward as torch matmul calls replayed from a CUDA graph) and its bound.
+     full model width (side lifters at hidden 1024, weights from a seeded
+     torch.Generator): the fused serving kernel (K2) at the serving batches,
+     the residual-block kernels (K1 forward and backward) at the training,
+     serving and validation batches under both dtype policies, bitwise
+     repeatable;
+  3. one stage-3a training step on the card against the same step on the
+     CPU (full-width lifters and 8-block flows at hidden 1024, batch 64, the
+     same draws), counting the residual-block launches of the step;
+  4. drive the main paths through their entry points on a synthetic
+     corpus: ``links_tpu_torch.cli.lift`` (--fused, --policy bf16, f32), then
+     ``links_tpu_torch.cli.train_left_right_lifter`` for one epoch and
+     ``lift`` (--fused, --policy bf16) with the lifters it wrote;
+  5. time each kernel, its plain version, a library yardstick (the same
+     function as torch calls replayed from a CUDA graph) and its bound, and
+     the training step at batch 256.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -22,6 +29,9 @@ non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import io
 import json
 import subprocess
 import sys
@@ -32,25 +42,78 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
-from links_tpu_torch.ckpt.torch_io import save_lifter_pt
+from links_tpu_torch.ckpt.torch_io import save_flow_pt, save_lifter_pt
 from links_tpu_torch.cli import lift
-from links_tpu_torch.core.nn import full_f32_matmuls
-from links_tpu_torch.data.synthetic import write_synthetic_pickle
+from links_tpu_torch.cli import train_left_right_lifter as train_cli
+from links_tpu_torch.config import LifterTrainConfig, OptimConfig
+from links_tpu_torch.core.geometry import normalize_head
+from links_tpu_torch.core.nn import BF16, F32, full_f32_matmuls
+from links_tpu_torch.data.synthetic import generate_poses, write_synthetic_pickle
+from links_tpu_torch.flows import Flow
 from links_tpu_torch.models.lifters import CHAIN, Lifter, StackedLifter
+from links_tpu_torch.objectives import lifter as obj
+from links_tpu_torch.objectives.lifter import LifterFrozen
 from links_tpu_torch.ops import _build
 from links_tpu_torch.ops import fused_infer as K2
+from links_tpu_torch.ops import resblock as K1
+from links_tpu_torch.train.optim import Adam
+from links_tpu_torch.train.steps import (
+    StepDraws,
+    TrainState,
+    build_left_right_grads,
+    build_left_right_step,
+)
 
-# Kernel vs plain version: rtol = atol. Both accumulate bf16 x bf16 products
-# in f32, in different orders; a last-bit difference of a sum can flip the
-# bf16 rounding of the next layer's input, and 16 layers carry such flips
-# to the heads. Observed on an H100: at most 3.4e-4 on outputs of ~0.2.
+# K2 vs plain version: rtol = atol. Both accumulate bf16 x bf16 products in
+# f32, in different orders; a last-bit difference of a sum can flip the bf16
+# rounding of the next layer's input, and 16 layers carry such flips to the
+# heads. Observed on an H100: at most 3.4e-4 on outputs of ~0.2.
 TOL = 1e-3
+# K1 vs plain version. Forward outputs: rtol = atol (sums in another order;
+# f32 operands enter as three bf16 terms; under bf16 a flipped rounding of h
+# moves a2 by ~1e-4). bf16-policy dx, dW1, dW2 are rounded to bf16 after
+# their sum, so a flip there is one bf16 unit in the last place: at most
+# 2**-7 of the largest value. The other gradients (bf16 db1, db2, which sum
+# flipped terms over the batch, and every f32-policy gradient, whose sums
+# over up to 4096 rows carry an error of the size of the partial sums, not
+# of the element): 1e-3 of the largest value.
+K1_TOL = 1e-3
+K1_BF16_ULP = 2.0 ** -7
+# The ulp bound alone would pass a backward that rounds its f32 gradient
+# operands g1, g2 to one bf16 term (the Pallas kernel's numerics), since that
+# too moves each element by about one ulp. What separates the two is how
+# many elements move: the share of bf16-policy dx, dW1, dW2 elements off by
+# more than K1_FLIP_REL of their own value must stay below K1_FLIP_SHARE. A
+# flipped dh element shifts every dx and dW1 sum that reads it, so those
+# flip in a few percent of elements (at most 4.9%, dW1 at B=4096, observed
+# on an H100); one-term operands flip 25-54%. Each run checks that a
+# one-term control, computed here in PyTorch, exceeds the limit.
+K1_FLIP_REL = 1e-5
+K1_FLIP_SHARE = 0.1
+K1_BATCHES = (1, 37, 512, 4096)  # serving, ragged, training step (2 x 256), validation
+# One training step, card vs CPU (bf16 policy, batch 64): loss terms within
+# rtol = 1e-3, atol = 1e-4 and each gradient within a relative L2 error of
+# 2e-2. The sides differ by bf16 rounding flips of hidden activations and of
+# the rounded gradient products, which the 7-block chains carry on (7.1e-3
+# observed on an H100).
+STEP_RTOL, STEP_ATOL, STEP_GRAD_REL = 1e-3, 1e-4, 2e-2
+# Residual-block calls per training step: 7 blocks x 2 sides x (lift +
+# re-lift) forward; backward only where a loss reads the output: no loss
+# reads the re-lift's elevation angles, so its 3 angle blocks per side get no
+# gradient.
+K1_FWD_PER_STEP = 2 * 2 * 7
+K1_BWD_PER_STEP = K1_FWD_PER_STEP - 2 * 3
 KERNEL_BATCHES = (1, 37, 256, 512)
 TIMED_BATCHES = (1, 256, 512)
-MAIN_BATCH = 256          # --batch-size of the main path's lift runs
+MAIN_BATCH = 256          # --batch-size of the main paths
 TEST_POSES = 2048         # synthetic poses per test subject (S9, S11)
+TRAIN_POSES = 2048        # synthetic poses per train subject: 40 steps at 256
+STEP_CHECK_BATCH = 64
 HIDDEN = 1024
+FLOW_HIDDEN = 1024        # the flow trainers' default width
+FLOW_BLOCKS = 8
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense bf16 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -78,6 +141,27 @@ def _time_ms(fn, iters=50, warmup=5) -> tuple[float, float]:
     return start.elapsed_time(end) / iters, host
 
 
+def _graphed(fn):
+    """``fn`` captured in a CUDA graph after a warm-up on a side stream:
+    -> (graph, outputs of the captured call)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _bound(nbytes: float, flops: float):
+    """The least time for work of ``nbytes`` and ``flops``: (ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def _inputs(batch: int, seed: int, in_dim: int = 22):
     g = torch.Generator().manual_seed(seed)
     x = (torch.randn(2, batch, in_dim, generator=g) * 0.1).cuda()
@@ -85,23 +169,21 @@ def _inputs(batch: int, seed: int, in_dim: int = 22):
 
 
 def _bound_ms(prep: dict, batch: int):
-    """Least time for fused_sides_forward at ``batch``: the larger of its
-    bytes (weights and inputs read once, outputs written once) over HBM
-    bandwidth and its FLOPs over the dense bf16 peak."""
+    """Least time for fused_sides_forward at ``batch``: weights and inputs
+    read once, outputs written once, against the dense bf16 peak."""
     _, in_dim, hidden = prep["w_up"].shape
     n_out = prep["w_down"].shape[1]
     nbytes = (sum(t.numel() * t.element_size() for t in prep.values())
               + 2 * batch * in_dim * 4 + 2 * batch * (n_out + 1) * 4)
     flops = 2 * 2 * batch * (in_dim * hidden + 2 * len(CHAIN) * hidden * hidden
                              + hidden * (n_out + 1))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, flops)
 
 
 def _library_forward(prep: dict, left, right):
     """The same 16-layer two-side forward as batched torch matmuls in bf16,
-    captured in a CUDA graph: the yardstick for the kernel (never used by the
-    port). Returns (graph, outputs)."""
+    captured in a CUDA graph: the yardstick for K2 (never used by the port).
+    Returns (graph, outputs)."""
     bf = {k: v.bfloat16() for k, v in prep.items()}
     w_chain = bf["w_chain"]
     x = torch.stack([left, right]).bfloat16()
@@ -123,22 +205,14 @@ def _library_forward(prep: dict, left, right):
                 depth = torch.baddbmm(bf["b_down"][:, None], cur, w_down)
         return depth, torch.baddbmm(bf["b_ang"][:, None], cur, w_ang)
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fwd()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fwd()
-    return graph, out
+    return _graphed(fwd)
 
 
 def phase_build():
     t0 = time.perf_counter()
-    _build.build(["fused_infer"])
+    _build.build(["fused_infer", "resblock"])
     K2._lib()
+    K1._lib()
     _log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, (secs, out) in _build.BUILD_LOG.items():
         _log(f"[build] {name}.cu: nvcc {secs:.2f} s\n{out.strip()}")
@@ -171,11 +245,168 @@ def phase_kernel_vs_plain(prep) -> float:
     return worst
 
 
-def phase_main_path(stacked) -> int:
+def _k1_inputs(batch: int, seed: int):
+    """x, W1, b1, W2, b2 (torch.nn.Linear's init at hidden 1024) and dy."""
+    g = torch.Generator().manual_seed(seed)
+    bound = HIDDEN ** -0.5
+    w1, w2 = (torch.empty(HIDDEN, HIDDEN).uniform_(-bound, bound, generator=g) for _ in "12")
+    b1, b2 = (torch.empty(HIDDEN).uniform_(-bound, bound, generator=g) for _ in "12")
+    x, dy = (torch.randn(batch, HIDDEN, generator=g) for _ in "xy")
+    return [t.cuda() for t in (x, w1, b1, w2, b2, dy)]
+
+
+def _flip_share(got, want) -> float:
+    """The share of elements off by more than K1_FLIP_REL of their own value."""
+    return float(((got - want).abs() > K1_FLIP_REL * want.abs()).float().mean())
+
+
+def _k1_check(name: str, got, want, rule: str) -> float:
+    """Hold one K1 output against the plain version's by ``rule``:
+    'elementwise', 'ulp' (with the flip share) or 'scale' (see K1_TOL)."""
+    err = (got - want).abs()
+    scale = float(want.abs().max())
+    if rule == "ulp":
+        ok = float(err.max()) <= K1_BF16_ULP * scale and _flip_share(got, want) < K1_FLIP_SHARE
+    elif rule == "scale":
+        ok = float(err.max()) <= K1_TOL * scale
+    else:
+        ok = not bool((err > K1_TOL + K1_TOL * want.abs()).any())
+    if not ok or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name} disagrees with its plain version: max abs err "
+                             f"{float(err.max()):.3e} (largest value {scale:.3e}), flip "
+                             f"share {_flip_share(got, want):.4f}")
+    return float(err.max())
+
+
+def _one_term_backward(dy, x, w1, w2, a1, h, a2):
+    """The control for the flip check: the bf16 backward with the gradient
+    operands g1, g2 rounded to one bf16 term before each product, as the
+    Pallas kernel does. -> (dx, dW1, dW2)."""
+    def r(t):
+        return t.bfloat16().float()
+
+    g2 = r(dy * K1._dlrelu(a2))
+    g1 = r(r(g2 @ r(w2)) * K1._dlrelu(a1))
+    return dy + r(g1 @ r(w1)), r(g1.mT @ r(x)), r(g2.mT @ r(h))
+
+
+def phase_k1_vs_plain() -> tuple[float, float]:
+    """-> (worst forward error, worst backward error) over every batch and
+    policy."""
+    worst_f = worst_b = 0.0
+    for policy, pname in ((BF16, "bf16"), (F32, "f32")):
+        for batch in K1_BATCHES:
+            x, w1, b1, w2, b2, dy = _k1_inputs(batch, seed=batch)
+            fwd = K1.res_block_forward(x, w1, b1, w2, b2, policy)
+            torch.cuda.synchronize()
+            fwd2 = K1.res_block_forward(x, w1, b1, w2, b2, policy)
+            torch.cuda.synchronize()
+            want = K1.res_block_forward_reference(x, w1, b1, w2, b2, policy)
+            errs_f = [_k1_check(f"res_block_forward {pname} B={batch} {n}", g, w, "elementwise")
+                      for n, g, w in zip(("y", "a1", "h", "a2"), fwd, want)]
+            # the backward from the plain forward's saved activations: the
+            # same inputs for both versions
+            bwd = K1.res_block_backward(dy, x, w1, w2, *want[1:], policy)
+            torch.cuda.synchronize()
+            bwd2 = K1.res_block_backward(dy, x, w1, w2, *want[1:], policy)
+            torch.cuda.synchronize()
+            ref = K1.res_block_backward_reference(dy, x, w1, w2, *want[1:], policy)
+            errs_b = [_k1_check(f"res_block_backward {pname} B={batch} {n}", g, w,
+                                "ulp" if policy is BF16 and n in ("dx", "dW1", "dW2")
+                                else "scale")
+                      for n, g, w in zip(("dx", "dW1", "db1", "dW2", "db2"), bwd, ref)]
+            if not (all(torch.equal(a, b) for a, b in zip(fwd, fwd2))
+                    and all(torch.equal(a, b) for a, b in zip(bwd, bwd2))):
+                raise AssertionError(f"res_block kernels are not repeatable at {pname} B={batch}")
+            worst_f, worst_b = max(worst_f, *errs_f), max(worst_b, *errs_b)
+            flips = ""
+            if policy is BF16:
+                rounded = (ref[0], ref[1], ref[3])
+                kernel = [_flip_share(g, w) for g, w in zip((bwd[0], bwd[1], bwd[3]), rounded)]
+                control = [_flip_share(g, w) for g, w in
+                           zip(_one_term_backward(dy, x, w1, w2, *want[1:]), rounded)]
+                if min(control) < K1_FLIP_SHARE:
+                    raise AssertionError(f"the flip check does not reject one-term gradient "
+                                         f"operands at B={batch}: shares {control}")
+                flips = (f"; flip share dx/dW1/dW2 {' '.join(f'{v:.4f}' for v in kernel)} "
+                         f"(one-term control {' '.join(f'{v:.4f}' for v in control)}, "
+                         f"limit {K1_FLIP_SHARE})")
+            _log(f"[kernel] res_block {pname} B={batch}: max abs err forward "
+                 f"y/a1/h/a2 {' '.join(f'{e:.2e}' for e in errs_f)}; backward "
+                 f"dx/dW1/db1/dW2/db2 {' '.join(f'{e:.2e}' for e in errs_b)}{flips}; two "
+                 f"runs bitwise equal")
+    return worst_f, worst_b
+
+
+def _synthetic_batch(n: int, seed: int) -> torch.Tensor:
+    p = generate_poses(n, seed=seed)["poses_2d"].astype(np.float32)
+    return normalize_head(torch.from_numpy(p.transpose(0, 2, 1).reshape(n, 34)))
+
+
+def _full_width_models(seed: int):
+    """Side lifters at hidden 1024 and frozen 8-block flows at hidden 1024,
+    on the CPU, from a seeded generator."""
+    g = torch.Generator().manual_seed(seed)
+    stacked = StackedLifter(Lifter(11, HIDDEN, generator=g), Lifter(11, HIDDEN, generator=g))
+    frozen = LifterFrozen(*(Flow(d, FLOW_BLOCKS, FLOW_HIDDEN, generator=g).requires_grad_(False)
+                            for d in (34, 22, 22)))
+    return stacked, frozen
+
+
+def phase_step_card_vs_cpu() -> tuple[int, int]:
+    """One training step (bf16 policy) on the card and on the CPU from the same
+    weights, batch and draws. -> the card's (forward, backward) K1 launches."""
+    stacked, frozen = _full_width_models(seed=1)
+    batch = _synthetic_batch(STEP_CHECK_BATCH, seed=7)
+    g = torch.Generator().manual_seed(8)
+    draws = StepDraws(torch.randn(STEP_CHECK_BATCH, 34, generator=g),
+                      torch.rand(2 * STEP_CHECK_BATCH, 1, generator=g),
+                      torch.randn(2 * STEP_CHECK_BATCH, 1, generator=g))
+    cfg = LifterTrainConfig(nll_cap=500.0, batch_size=STEP_CHECK_BATCH,
+                            optim=OptimConfig(bf16_moments=True))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(stacked).to(dev)
+        fr = LifterFrozen(*(copy.deepcopy(f).to(dev) for f in frozen))
+        grads_fn = build_left_right_grads(fr, cfg)
+        K1.res_block_forward.launches = K1.res_block_backward.launches = 0
+        aux, grads = grads_fn(model, batch.to(dev), StepDraws(*(t.to(dev) for t in draws)))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = (K1.res_block_forward.launches, K1.res_block_backward.launches)
+        Adam(model.parameters(), cfg.optim, steps_per_epoch=40).step(grads)
+        out[dev] = ({k: float(v) for k, v in aux.items()}, [t.cpu() for t in grads],
+                    [p.detach().cpu() for p in model.parameters()])
+    if launches != (K1_FWD_PER_STEP, K1_BWD_PER_STEP):
+        raise AssertionError(f"one training step launched the residual-block kernels "
+                             f"{launches} times, expected {K1_FWD_PER_STEP} forward and "
+                             f"{K1_BWD_PER_STEP} backward")
+    (aux_c, grads_c, params_c), (aux_g, grads_g, params_g) = out["cpu"], out["cuda"]
+    for k, v in aux_c.items():
+        if not abs(aux_g[k] - v) <= STEP_ATOL + STEP_RTOL * abs(v):
+            raise AssertionError(f"training step {k}: card {aux_g[k]:.6g} vs CPU {v:.6g}")
+    rel = [float((a - b).norm() / b.norm().clamp_min(1e-12)) for a, b in zip(grads_g, grads_c)]
+    if max(rel) > STEP_GRAD_REL:
+        raise AssertionError(f"training step gradients: relative L2 error {max(rel):.3e}")
+    upd = max(float((a - b).abs().max()) for a, b in zip(params_g, params_c))
+    if upd > 2 * cfg.optim.learning_rate:
+        raise AssertionError(f"training step update: card and CPU params differ by {upd:.3e}")
+    _log(f"[step] card vs CPU, batch {STEP_CHECK_BATCH}: loss {aux_g['loss']:.6f} vs "
+         f"{aux_c['loss']:.6f}, worst loss term rel err "
+         f"{max(abs(aux_g[k] - v) / max(abs(v), 1e-12) for k, v in aux_c.items()):.2e}, "
+         f"worst gradient rel L2 err {max(rel):.2e} over {len(rel)} tensors, params after "
+         f"Adam within {upd:.2e}; K1 launches {launches[0]} forward + {launches[1]} backward")
+    return launches
+
+
+def phase_main_path(stacked) -> tuple[int, dict]:
+    """The serving lift (K2's path) and the stage-3a trainer (K1's path)
+    through their entry points. -> (K2 launches, K1 launches and the
+    trainer's summary)."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         data = tmp / "synthetic.pkl"
-        write_synthetic_pickle(data, n_per_subject=16, seed=0,
+        write_synthetic_pickle(data, n_per_subject=TRAIN_POSES, seed=0,
                                n_test_per_subject=TEST_POSES, test_subjects=("S9", "S11"))
         save_lifter_pt(stacked.left, tmp / "left_lifter.pt")
         save_lifter_pt(stacked.right, tmp / "right_lifter.pt")
@@ -186,31 +417,66 @@ def phase_main_path(stacked) -> int:
         for name, flags in (("fused", ["--fused"]), ("bf16", ["--policy", "bf16"]),
                             ("f32", [])):
             outs[name] = lift.main(common + flags + ["--out", str(tmp / f"{name}.npz")])
-        launches = K2.fused_sides_forward.launches
-    n = 2 * TEST_POSES
-    for name, pred in outs.items():
-        if pred.shape != (n, 3, 17) or not np.isfinite(pred).all():
-            raise AssertionError(f"lift {name}: expected finite (N, 3, 17) poses, "
-                                 f"got {pred.shape}")
-    if launches < 1:
-        raise AssertionError("lift --fused did not launch fused_sides_forward")
-    err = np.abs(outs["fused"] - outs["bf16"])
-    if (err > TOL + TOL * np.abs(outs["bf16"])).any():
-        raise AssertionError(f"lift --fused disagrees with --policy bf16: max abs "
-                             f"err {err.max():.3e}")
-    f32_gap = float(np.abs(outs["f32"] - outs["bf16"]).max())
-    if f32_gap > 0.05:
-        raise AssertionError(f"lift --policy bf16 is {f32_gap:.3e} from f32")
-    _log(f"[main] lift --fused vs --policy bf16: max abs err {err.max():.3e}; "
-         f"bf16 vs f32: {f32_gap:.3e}; fused_sides_forward launches {launches}")
-    return launches
+        k2_launches = K2.fused_sides_forward.launches
+        n = 2 * TEST_POSES
+        for name, pred in outs.items():
+            if pred.shape != (n, 3, 17) or not np.isfinite(pred).all():
+                raise AssertionError(f"lift {name}: expected finite (N, 3, 17) poses, "
+                                     f"got {pred.shape}")
+        if k2_launches < 1:
+            raise AssertionError("lift --fused did not launch fused_sides_forward")
+        err = np.abs(outs["fused"] - outs["bf16"])
+        if (err > TOL + TOL * np.abs(outs["bf16"])).any():
+            raise AssertionError(f"lift --fused disagrees with --policy bf16: max abs "
+                                 f"err {err.max():.3e}")
+        f32_gap = float(np.abs(outs["f32"] - outs["bf16"]).max())
+        if f32_gap > 0.05:
+            raise AssertionError(f"lift --policy bf16 is {f32_gap:.3e} from f32")
+        _log(f"[main] lift --fused vs --policy bf16: max abs err {err.max():.3e}; "
+             f"bf16 vs f32: {f32_gap:.3e}; fused_sides_forward launches {k2_launches}")
+
+        # stage 3a: one epoch through the trainer's entry point
+        _, frozen = _full_width_models(seed=3)
+        for name, flow in zip(("full_flow", "flow_left", "flow_right"), frozen):
+            save_flow_pt(flow, tmp / f"{name}.pt")
+        out = io.StringIO()
+        K1.res_block_forward.launches = K1.res_block_backward.launches = 0
+        with contextlib.redirect_stdout(out):
+            state = train_cli.main(common + ["--epochs", "1", "--seed", "0"])
+        k1 = {"forward": K1.res_block_forward.launches,
+              "backward": K1.res_block_backward.launches}
+        lines = out.getvalue().strip().splitlines()
+        summary = json.loads(lines[-1])
+        _log(lines[-2])
+        _log(json.dumps(summary))
+        steps = 5 * TRAIN_POSES // MAIN_BATCH
+        bad = [k for k, v in summary["last"].items() if not np.isfinite(v)]
+        if summary["steps"] != steps or state.step != steps or bad:
+            raise AssertionError(f"trainer: {summary['steps']} steps (expected {steps}), "
+                                 f"non-finite {bad}")
+        if k1["backward"] != steps * K1_BWD_PER_STEP or k1["forward"] <= steps * K1_FWD_PER_STEP:
+            raise AssertionError(f"trainer: residual-block kernel launches {k1}")
+        pts = [tmp / f"{side}_side_lifter_final.pt" for side in ("left", "right")]
+        if not all(p.exists() for p in pts):
+            raise AssertionError(f"trainer wrote no {pts}")
+        for name, flags in (("trained_fused", ["--fused"]),
+                            ("trained_bf16", ["--policy", "bf16"])):
+            pred = lift.main(common + flags + ["--left-pt", str(pts[0]), "--right-pt",
+                                               str(pts[1]), "--out", str(tmp / f"{name}.npz")])
+            if pred.shape != (n, 3, 17) or not np.isfinite(pred).all():
+                raise AssertionError(f"lift {name} of the trained lifters: {pred.shape}")
+        _log(f"[main] trainer: {steps} steps, K1 launches {k1['forward']} forward + "
+             f"{k1['backward']} backward; its lifters lift finite poses (--fused, bf16)")
+    return k2_launches, {"k1": k1, "summary": summary}
 
 
-def phase_times(prep):
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    _log(smi)
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def phase_times(prep, smi):
     rows = {}
     with torch.inference_mode():
         for batch in TIMED_BATCHES:
@@ -227,7 +493,137 @@ def phase_times(prep):
                  f"(wrapper's host time {host_ms:.4f} ms), plain {row['plain_ms']:.4f} ms, "
                  f"library (CUDA graph) {row['library_ms']:.4f} ms, bound "
                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) on {smi}")
-    return smi, rows
+    return rows
+
+
+def _k1_library(x, w1, b1, w2, b2, dy, dtype):
+    """The block as torch calls in ``dtype`` (addmm, leaky_relu; the backward
+    as the matmuls, leaky_relu_backward and sums autograd runs for them),
+    each captured in a CUDA graph: the yardstick for K1 (never used by the
+    port). -> (forward graph, backward graph)."""
+    x, w1, b1, w2, b2, dy = (t.to(dtype) for t in (x, w1, b1, w2, b2, dy))
+    a1 = torch.addmm(b1, x, w1.T)
+    h = F.leaky_relu(a1)
+    a2 = torch.addmm(b2, h, w2.T)
+    lrelu_bwd = torch.ops.aten.leaky_relu_backward
+
+    def fwd():
+        return F.leaky_relu(torch.addmm(b2, F.leaky_relu(torch.addmm(b1, x, w1.T)), w2.T)) + x
+
+    def bwd():
+        g2 = lrelu_bwd(dy, a2, 0.01, False)
+        g1 = lrelu_bwd(g2 @ w2, a1, 0.01, False)
+        return dy + g1 @ w1, g1.T @ x, g1.sum(0), g2.T @ h, g2.sum(0)
+
+    return _graphed(fwd)[0], _graphed(bwd)[0]
+
+
+def _k1_bounds(batch: int):
+    """Least times of the block's forward and backward at ``batch`` (f32
+    masters): forward reads x, W1, b1, W2, b2 and writes y, 2 products;
+    backward reads x, dy and the weights and writes dx, dW, db, 6 products
+    (a1 and a2 recomputed)."""
+    weights = (2 * HIDDEN * HIDDEN + 2 * HIDDEN) * 4
+    act = batch * HIDDEN * 4
+    product = 2 * batch * HIDDEN * HIDDEN
+    return (_bound(weights + 2 * act, 2 * product),
+            _bound(2 * weights + 3 * act, 6 * product))
+
+
+def phase_k1_times(smi):
+    """K1 forward and backward per call at the training step's batch (2 x 256)
+    and the validation batch, bf16 policy; the f32 policy at the validation
+    batch (the validation lifts run f32). -> rows of the bf16 training batch."""
+    rows = {}
+    for batch, policy, pname in ((512, BF16, "bf16"), (4096, BF16, "bf16"), (4096, F32, "f32")):
+        x, w1, b1, w2, b2, dy = _k1_inputs(batch, seed=2000 + batch)
+        saved = K1.res_block_forward_reference(x, w1, b1, w2, b2, policy)[1:]
+        lib_f, lib_b = _k1_library(x, w1, b1, w2, b2, dy,
+                                   torch.bfloat16 if policy is BF16 else torch.float32)
+        bounds = _k1_bounds(batch)
+        for which, kernel, plain, lib, (bound, by) in (
+                ("forward", lambda: K1.res_block_forward(x, w1, b1, w2, b2, policy),
+                 lambda: K1.res_block_forward_reference(x, w1, b1, w2, b2, policy), lib_f,
+                 bounds[0]),
+                ("backward", lambda: K1.res_block_backward(dy, x, w1, w2, *saved, policy),
+                 lambda: K1.res_block_backward_reference(dy, x, w1, w2, *saved, policy), lib_b,
+                 bounds[1])):
+            row = {}
+            row["ms"], host_ms = _time_ms(kernel)
+            row["plain_ms"], _ = _time_ms(plain)
+            row["library_ms"], _ = _time_ms(lib.replay)
+            row["bound_ms"], row["bound_by"] = bound, by
+            if batch == 512:
+                rows[which] = row
+            _log(f"[time] res_block_{which} {pname} B={batch}: kernel {row['ms']:.4f} ms "
+                 f"(wrapper's host time {host_ms:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+                 f"library ({pname} torch calls, CUDA graph) {row['library_ms']:.4f} ms, "
+                 f"bound {bound:.4f} ms ({by}) on {smi}")
+    return rows
+
+
+def phase_step_time(smi, k1_rows):
+    """The training step at batch 256 (bf16 policy, bf16 Adam moments, the
+    trainer's defaults), after warm-up: device ms (CUDA events) and host
+    ms per step, and a breakdown by part from the same functions."""
+    stacked, frozen = _full_width_models(seed=4)
+    stacked, frozen = stacked.cuda(), LifterFrozen(*(f.cuda() for f in frozen))
+    cfg = LifterTrainConfig(nll_cap=500.0, batch_size=MAIN_BATCH,
+                            optim=OptimConfig(bf16_moments=True))
+    state = TrainState(stacked, Adam(stacked.parameters(), cfg.optim, steps_per_epoch=40))
+    step = build_left_right_step(frozen, cfg)
+    data = _synthetic_batch(MAIN_BATCH, seed=9).cuda()
+    g = torch.Generator(device="cuda").manual_seed(10)
+
+    def one():
+        draws = StepDraws(torch.randn(MAIN_BATCH, 34, generator=g, device="cuda"),
+                          torch.rand(2 * MAIN_BATCH, 1, generator=g, device="cuda"),
+                          torch.randn(2 * MAIN_BATCH, 1, generator=g, device="cuda"))
+        return step(state, data, draws)
+
+    step_ms, host_ms = _time_ms(one, iters=20, warmup=3)
+    # device busy share and launches per step: torch.profiler over a few steps
+    n_prof = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            one()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernel_ms = sum(e.self_device_time_total for e in events if e.device_type.name == "CUDA")
+    kernel_ms = kernel_ms / 1e3 / n_prof
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel",
+                                                         "cudaLaunchCooperativeKernel"))
+    # where a step's device time goes: the same pieces, each between events
+    draws = StepDraws(torch.randn(MAIN_BATCH, 34, generator=g, device="cuda"),
+                      torch.rand(2 * MAIN_BATCH, 1, generator=g, device="cuda"),
+                      torch.randn(2 * MAIN_BATCH, 1, generator=g, device="cuda"))
+    parts = {"augment": 0.0, "loss": 0.0, "backward": 0.0, "adam": 0.0}
+    reps = 10
+    for rep in range(reps + 2):  # two warm-up repetitions
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        inp = obj.augment_with_samples(frozen.full_flow, data, draws.eps_noise, 0.2, BF16)
+        ev[1].record()
+        loss, _ = obj.left_right_loss(stacked, frozen, inp, draws.u_azim, draws.eps_elev, cfg,
+                                      BF16)
+        ev[2].record()
+        grads = torch.autograd.grad(loss, list(stacked.parameters()))
+        ev[3].record()
+        state.opt.step(grads)
+        ev[4].record()
+        torch.cuda.synchronize()
+        if rep >= 2:
+            for i, k in enumerate(parts):
+                parts[k] += ev[i].elapsed_time(ev[i + 1]) / reps
+    k1_ms = (K1_FWD_PER_STEP * k1_rows["forward"]["ms"]
+             + K1_BWD_PER_STEP * k1_rows["backward"]["ms"])
+    _log(f"[time] training step B={MAIN_BATCH}: device {step_ms:.4f} ms, host {host_ms:.4f} "
+         f"ms per step, {MAIN_BATCH / max(step_ms, host_ms) * 1e3:.1f} poses/s; kernels busy "
+         f"{kernel_ms:.4f} ms per step ({kernel_ms / step_ms:.1%} of the step; profiled), "
+         f"{launches / n_prof:.0f} kernel launches per step; parts between events (ms) "
+         f"{', '.join(f'{k} {v:.4f}' for k, v in parts.items())}; K1 at B=512 x "
+         f"{K1_FWD_PER_STEP} + {K1_BWD_PER_STEP} calls: {k1_ms:.4f} ms on {smi}")
+    return step_ms, host_ms
 
 
 def main() -> int:
@@ -244,15 +640,29 @@ def main() -> int:
     stacked = StackedLifter(Lifter(11, HIDDEN, generator=g),
                             Lifter(11, HIDDEN, generator=g)).cuda()
     prep = K2.prepare_fused_weights(stacked)
-    max_err = phase_kernel_vs_plain(prep)
-    launches = phase_main_path(stacked)
-    smi, rows = phase_times(prep)
+    k2_err = phase_kernel_vs_plain(prep)
+    k1_err = phase_k1_vs_plain()
+    phase_step_card_vs_cpu()
+    k2_launches, train = phase_main_path(stacked)
+    smi = _smi()
+    _log(smi)
+    k2_rows = phase_times(prep, smi)
+    k1_rows = phase_k1_times(smi)
+    phase_step_time(smi, k1_rows)
 
-    kernel = {"name": "fused_sides_forward", "route": "cuda",
-              "source": "links_tpu_torch/ops/csrc/fused_infer.cu",
-              "replaces": "links_tpu/ops/fused_infer.py:101",
-              "launches": launches, "max_abs_err": max_err, **rows[MAIN_BATCH]}
-    print(json.dumps({"kernels": [kernel]}))
+    src = "links_tpu_torch/ops/csrc/"
+    kernels = [
+        {"name": "fused_sides_forward", "route": "cuda", "source": src + "fused_infer.cu",
+         "replaces": "links_tpu/ops/fused_infer.py:101", "launches": k2_launches,
+         "max_abs_err": k2_err, **k2_rows[MAIN_BATCH]},
+        {"name": "res_block_forward", "route": "cuda", "source": src + "resblock.cu",
+         "replaces": "links_tpu/experimental/pallas_resblock.py:60",
+         "launches": train["k1"]["forward"], "max_abs_err": k1_err[0], **k1_rows["forward"]},
+        {"name": "res_block_backward", "route": "cuda", "source": src + "resblock.cu",
+         "replaces": "links_tpu/experimental/pallas_resblock.py:69",
+         "launches": train["k1"]["backward"], "max_abs_err": k1_err[1], **k1_rows["backward"]},
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

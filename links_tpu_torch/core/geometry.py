@@ -1,10 +1,14 @@
-"""Test-time 2D pose normalizers (counterpart of the normalizers in
-links_tpu/core/geometry.py). Rotations and projections arrive with the
-training slice."""
+"""Geometry primitives (counterpart of links_tpu/core/geometry.py): axis
+rotations, perspective projection, the train and test 2D normalizers and
+the latent perturbation of generative sampling."""
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+PI = math.pi
 
 # Hard-coded test-time normalization scales (reference utils/helpers.py:222-259).
 H36M_TEST_SCALE_INTERESTING = 145.40964
@@ -44,3 +48,48 @@ def normalize_maxabs(poses_2d: torch.Tensor) -> torch.Tensor:
     kp = poses_2d - poses_2d[:, 0:1, :]
     pose_max = kp.abs().amax(dim=(1, 2), keepdim=True)
     return (kp / pose_max).transpose(1, 2).reshape(-1, 34)
+
+
+def _axis_rotation(axis: str, angle: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices about one axis, (...,) -> (..., 3, 3) (PyTorch3D
+    convention, as the reference's utils/rotation_conversions.py)."""
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    one, zero = torch.ones_like(angle), torch.zeros_like(angle)
+    if axis == "X":
+        flat = (one, zero, zero, zero, cos, -sin, zero, sin, cos)
+    else:  # "Y"
+        flat = (cos, zero, sin, zero, one, zero, -sin, zero, cos)
+    return torch.stack(flat, dim=-1).reshape(angle.shape + (3, 3))
+
+
+def rotation_about_x(angle: torch.Tensor) -> torch.Tensor:
+    """(B, 1) elevation angles -> (B, 3, 3)."""
+    return _axis_rotation("X", angle[..., 0])
+
+
+def rotation_about_y(angle: torch.Tensor) -> torch.Tensor:
+    """(B, 1) azimuth angles -> (B, 3, 3)."""
+    return _axis_rotation("Y", angle[..., 0])
+
+
+def perspective_projection(pose_3d: torch.Tensor) -> torch.Tensor:
+    """(B, 51) camera-frame 3D -> (B, 34) 2D by x/z, y/z."""
+    p = pose_3d.reshape(-1, 51)
+    xy = p[:, :34].reshape(-1, 2, 17)
+    z = p[:, 34:].reshape(-1, 1, 17)
+    return (xy / z).reshape(-1, 34)
+
+
+def normalize_head(poses_2d: torch.Tensor, root_joint: int = 0) -> torch.Tensor:
+    """Training 2D normalization: root-center (B, 34) poses, divide by the
+    dataset-mean root-to-head distance, times 0.1."""
+    p2d = poses_2d.reshape(-1, 2, 17)
+    p2d = p2d - p2d[:, :, root_joint:root_joint + 1]
+    scale = torch.linalg.vector_norm(p2d[:, :, 0] - p2d[:, :, 10], dim=1)
+    return p2d.reshape(-1, 34) / scale.mean() * 0.1
+
+
+def add_noise(latent: torch.Tensor, noise_factor: float, eps: torch.Tensor) -> torch.Tensor:
+    """Latent perturbation of generative sampling, z + f (eps * z), with the
+    standard-normal draw ``eps`` (latent's shape) given by the caller."""
+    return latent + noise_factor * eps * latent

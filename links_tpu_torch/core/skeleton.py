@@ -117,3 +117,10 @@ def _combine_lr(left_split, right_split, choice, ncoords):
 def combine_left_right_pred_1d(left_split, right_split, choice):
     """Merge (B, 11) + (B, 11) per-joint depths -> (B, 1, 17)."""
     return _combine_lr(left_split, right_split, choice, 1)
+
+
+def get_bone_lengths_all(poses):
+    """(B, 51) 3D poses -> (B, 16) lengths of the BONE_MAP_ALL bones."""
+    p = poses.reshape(-1, 3, NUM_JOINTS)
+    bones = p[:, :, _on(BONE_MAP_ALL[:, 0], p)] - p[:, :, _on(BONE_MAP_ALL[:, 1], p)]
+    return torch.linalg.vector_norm(bones, dim=1)

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from links_tpu_torch.core.nn import F32, Linear, Policy, leaky_relu
+from links_tpu_torch.ops.resblock import res_block
 
 HIDDEN = 1024
 # The residual blocks in the order the fused serving kernel runs them.
@@ -24,7 +25,9 @@ CHAIN = ("res_common", "res_pose1", "res_pose2", "res_pose3",
 
 
 class ResBlock(nn.Module):
-    """Two Linear + LeakyReLU with a residual skip (no outer activation)."""
+    """Two Linear + LeakyReLU with a residual skip (no outer activation): the
+    residual-block kernel on the card, its plain version on the CPU
+    (ops/resblock.py)."""
 
     def __init__(self, hidden: int, *, generator: torch.Generator | None = None):
         super().__init__()
@@ -32,9 +35,7 @@ class ResBlock(nn.Module):
         self.l2 = Linear(hidden, hidden, generator=generator)
 
     def forward(self, x: torch.Tensor, policy: Policy = F32) -> torch.Tensor:
-        h = leaky_relu(self.l1(x, policy))
-        h = leaky_relu(self.l2(h, policy))
-        return h + x
+        return res_block(x, self.l1.weight, self.l1.bias, self.l2.weight, self.l2.bias, policy)
 
 
 class Lifter(nn.Module):

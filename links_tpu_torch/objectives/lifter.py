@@ -1,14 +1,42 @@
-"""Eval forwards of the lifters (counterpart of the eval functions in
-links_tpu/objectives/lifter.py): lift, pin the root's depth offset to 0, add
-the depth offset (no clamp at eval) and reconstruct camera-frame 3D."""
+"""Lifter objectives (counterpart of links_tpu/objectives/lifter.py).
+
+Eval forwards: lift, pin the root's depth offset to 0, add the depth offset
+(no clamp at eval) and reconstruct camera-frame 3D.
+
+Stage-3a training loss (the reference's train_left_right_lifter.py:121-423):
+  1. the lifters emit per-joint depth offsets and an elevation angle;
+  2. depth z = offset + cfg.depth (root offset pinned to 0), clamped >= 1;
+  3. 3D reconstruction X = x z, Y = y z, Z = z, root-centered;
+  4. a random camera: elevation compensation from the predicted angles,
+     elevation ~ N(-mean(props), std(props)) (ddof=1), azimuth
+     (u - 0.5) 1.99 pi; R = Rx (Ry Rcomp);
+  5. rotate, translate by cfg.depth, project; the rotated views feed five
+     losses: part-flow NLL, 3D consistency, 2D reprojection, pairwise
+     deformation and the bone-length prior.
+The random draws are tensors the caller gives: torch cannot reproduce
+jax.random, and the tests hand both packages the same numbers.
+"""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
+from links_tpu_torch import flows
+from links_tpu_torch.config import LifterTrainConfig
+from links_tpu_torch.core.geometry import (
+    PI,
+    perspective_projection,
+    rotation_about_x,
+    rotation_about_y,
+)
 from links_tpu_torch.core.nn import F32, Policy
 from links_tpu_torch.core.skeleton import (
+    BONE_RELATIONS_MEAN_H36M,
     combine_left_right_pred_1d,
+    get_bone_lengths_all,
     split_data_left_right,
     split_data_legs_torso,
 )
@@ -45,3 +73,143 @@ def lift_leg_torso_eval(legs, torso, poses_2d: torch.Tensor,
     torso_pred, _ = torso(inp_torso, policy)
     pred = torch.cat([legs_pred, torso_pred], dim=1)
     return depth_to_camera_3d(poses_2d, pred, depth_offset)
+
+
+class LifterFrozen(NamedTuple):
+    """The frozen flows of the stage-3a loss: the 34-d full-pose flow and the
+    22-d left and right flows."""
+
+    full_flow: flows.Flow
+    part_a: flows.Flow  # left
+    part_b: flows.Flow  # right
+
+
+def reconstruct_3d(poses_2d: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """(B, 34) 2D + (B, 17) depth -> (B, 3, 17) root-centered camera-space 3D."""
+    p2 = poses_2d.reshape(-1, 2, 17)
+    xyz = torch.cat([p2 * depth[:, None, :], depth[:, None, :]], dim=1)
+    return xyz - xyz[:, :, 0:1]
+
+
+def globalize(pose_51: torch.Tensor, depth_offset: float) -> torch.Tensor:
+    """Root-centered (B, 51) -> camera frame by translating z by depth_offset."""
+    return torch.cat([pose_51[:, :34], pose_51[:, 34:] + depth_offset], dim=1)
+
+
+def sample_rotation(props: torch.Tensor, u_azim: torch.Tensor,
+                    eps_elev: torch.Tensor) -> torch.Tensor:
+    """The augmentation rotation for (B, 1) predicted elevation angles, from
+    the draws ``u_azim`` (B, 1) uniform on [0, 1) and ``eps_elev`` (B, 1)
+    standard normal: azimuth (u - 0.5) 1.99 pi, elevation drawn from the
+    batch's mean and ddof=1 std of ``props``, composed with the per-sample
+    compensation Rcomp: R = Rx (Ry Rcomp)."""
+    ry = rotation_about_y((u_azim - 0.5) * 1.99 * PI)
+    r_comp = rotation_about_x(props)
+    x_ang = -props.mean() + props.std() * eps_elev
+    return rotation_about_x(x_ang) @ (ry @ r_comp)
+
+
+def _pairwise_deformation(pred_3d: torch.Tensor, re_rot_3d: torch.Tensor) -> torch.Tensor:
+    """Consecutive-pair difference consistency (even batch)."""
+    n = pred_3d.shape[0]
+    a = pred_3d.reshape(-1, 51)[: n // 2 * 2].reshape(-1, 2, 51)
+    b = re_rot_3d[: n // 2 * 2].reshape(-1, 2, 51)
+    diff = (a[:, 0] - a[:, 1]) - (b[:, 0] - b[:, 1])
+    return torch.linalg.vector_norm(diff, dim=1).mean()
+
+
+def _bl_prior(pred_3d: torch.Tensor) -> torch.Tensor:
+    """Relative bone-length prior against H36M's mean bone relations."""
+    bl = get_bone_lengths_all(pred_3d.reshape(-1, 51))
+    rel = bl / bl.mean(dim=1, keepdim=True)
+    mean = torch.as_tensor(BONE_RELATIONS_MEAN_H36M.astype(np.float32), device=pred_3d.device)
+    return ((mean - rel) ** 2).sum(dim=1).mean()
+
+
+def augment_with_samples(full_flow: flows.Flow, poses_2d: torch.Tensor, eps: torch.Tensor,
+                         noise_factor: float = 0.2, policy: Policy = F32) -> torch.Tensor:
+    """The batch followed by as many samples of the frozen full flow around
+    it (``eps``: the (B, 34) standard-normal latent noise): doubles the batch."""
+    samples = flows.draw_samples(full_flow, poses_2d, eps, noise_factor, policy=policy)
+    return torch.cat([poses_2d, samples], dim=0)
+
+
+def _capped_nll_mean(z, logdet, nll_cap: float) -> torch.Tensor:
+    v = flows.nll(z, logdet)
+    if nll_cap:
+        v = flows.soft_cap_nll(v, nll_cap)
+    return v.mean()
+
+
+def _root_pinned(left_pred, right_pred, choice: str, n: int) -> torch.Tensor:
+    pred = combine_left_right_pred_1d(left_pred, right_pred, choice).reshape(n, 17)
+    return torch.cat([torch.zeros_like(pred[:, :1]), pred[:, 1:]], dim=1)
+
+
+def left_right_loss(stacked, frozen: LifterFrozen, inp_poses: torch.Tensor,
+                    u_azim: torch.Tensor, eps_elev: torch.Tensor, cfg: LifterTrainConfig,
+                    policy: Policy = F32):
+    """Stage-3a loss of a ``StackedLifter`` on (N, 34) poses already
+    augmented with flow samples; ``u_azim`` and ``eps_elev`` (N, 1) are the
+    rotation's draws (``sample_rotation``). -> (loss, aux) with the JAX
+    package's aux keys."""
+    n = inp_poses.shape[0]
+    left_inp, right_inp = split_data_left_right(inp_poses)
+    left_pred, right_pred, left_ang, right_ang = stacked(left_inp, right_inp, policy)
+    props = (left_ang + right_ang) / 2.0
+    pred_left = _root_pinned(left_pred, right_pred, "left", n)
+    pred_right = _root_pinned(left_pred, right_pred, "right", n)
+
+    R = sample_rotation(props, u_azim, eps_elev)
+    pred_3d_left = reconstruct_3d(inp_poses, torch.clamp(pred_left + cfg.depth, min=1.0))
+    pred_3d_right = reconstruct_3d(inp_poses, torch.clamp(pred_right + cfg.depth, min=1.0))
+    rot_poses_left = (R @ pred_3d_left).reshape(n, 51)
+    rot_poses_right = (R @ pred_3d_right).reshape(n, 51)
+    rot_2d_left = perspective_projection(globalize(rot_poses_left, cfg.depth))
+    rot_2d_right = perspective_projection(globalize(rot_poses_right, cfg.depth))
+
+    # each side's flow sees its own rotated view
+    norm_left_side, _ = split_data_left_right(rot_2d_left)
+    _, norm_right_side = split_data_left_right(rot_2d_right)
+    likeli_left = _capped_nll_mean(*flows.forward(frozen.part_a, norm_left_side, policy),
+                                   cfg.nll_cap)
+    likeli_right = _capped_nll_mean(*flows.forward(frozen.part_b, norm_right_side, policy),
+                                    cfg.nll_cap)
+    likeli = likeli_left + likeli_right
+
+    # re-lift the rotated views; no loss reads their angles, so the angle
+    # branch (3 residual blocks per side) runs for nothing here
+    pred_rot_left, pred_rot_right, _, _ = stacked(norm_left_side, norm_right_side, policy)
+    rot_depth_left = torch.clamp(_root_pinned(pred_rot_left, pred_rot_right, "left", n)
+                                 + cfg.depth, min=1.0)
+    rot_depth_right = torch.clamp(_root_pinned(pred_rot_left, pred_rot_right, "right", n)
+                                  + cfg.depth, min=1.0)
+    pred_3d_rot_left = reconstruct_3d(rot_2d_left, rot_depth_left)
+    pred_3d_rot_right = reconstruct_3d(rot_2d_right, rot_depth_right)
+
+    # 3D consistency
+    L3d = torch.linalg.vector_norm(rot_poses_right - pred_3d_rot_right.reshape(n, 51),
+                                   dim=1).mean()
+    L3d = L3d + torch.linalg.vector_norm(rot_poses_left - pred_3d_rot_left.reshape(n, 51),
+                                         dim=1).mean()
+
+    # rotate back and reproject
+    Rt = R.transpose(1, 2)
+    re_rot_3d_left = (Rt @ pred_3d_rot_left).reshape(n, 51)
+    re_rot_3d_right = (Rt @ pred_3d_rot_right).reshape(n, 51)
+    re_rot_2d_left = perspective_projection(globalize(re_rot_3d_left, cfg.depth))
+    re_rot_2d_right = perspective_projection(globalize(re_rot_3d_right, cfg.depth))
+    rep_rot = torch.abs(re_rot_2d_left - inp_poses).sum(dim=1).mean()
+    rep_rot = rep_rot + torch.abs(re_rot_2d_right - inp_poses).sum(dim=1).mean()
+
+    re_rot_3d = _pairwise_deformation(pred_3d_left, re_rot_3d_left)
+    re_rot_3d = re_rot_3d + _pairwise_deformation(pred_3d_right, re_rot_3d_right)
+
+    bl_prior = _bl_prior(pred_3d_left) + _bl_prior(pred_3d_right)
+
+    loss = (cfg.weight_likeli * likeli + cfg.weight_2d * rep_rot + cfg.weight_3d * L3d
+            + cfg.weight_velocity * re_rot_3d + cfg.weight_bl * bl_prior)
+    aux = {"likeli": likeli, "likeli_left": likeli_left, "likeli_right": likeli_right,
+           "L3d": L3d, "rep_rot": rep_rot, "re_rot_3d": re_rot_3d, "bl_prior": bl_prior,
+           "loss": loss}
+    return loss, aux

@@ -131,6 +131,7 @@ def pickle_path(tmp_path_factory):
 @pytest.mark.parametrize("loader,subjects,kwargs", [
     ("load_h36m", ("S9", "S11"), {"normalize_func": "normalize_head_test"}),
     ("load_h36m", ("S1", "S5"), {}),
+    ("load_h36m", ("S1", "S5", "S6"), {"normalize_func": "normalize_head"}),
     ("load_h36m", ("S9", "S11"), {"normalize_func": "normalize_head_test",
                                   "use_gt": False, "complete_only": True}),
     ("load_h36m", ("S9",), {"use_gt": False}),
@@ -146,6 +147,47 @@ def test_dataset_loaders(pickle_path, loader, subjects, kwargs):
     np.testing.assert_allclose(got.poses_2d.numpy(), np.asarray(want.poses_2d),
                                rtol=1e-6, atol=1e-7)
     np.testing.assert_array_equal(got.poses_3d.numpy(), np.asarray(want.poses_3d))
+
+
+@pytest.mark.parametrize("fn", ["rotation_about_x", "rotation_about_y"])
+def test_axis_rotations(rng, fn):
+    a = rng.uniform(-3.0, 3.0, size=(13, 1)).astype(np.float32)
+    got = getattr(tgeo, fn)(torch.from_numpy(a))
+    want = getattr(jgeo, fn)(jnp.asarray(a))
+    assert tuple(got.shape) == (13, 3, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-7)
+
+
+def test_perspective_projection(rng):
+    p = _poses(rng, 10, 51)
+    p[:, 34:] = np.abs(p[:, 34:]) + 5.0
+    got = tgeo.perspective_projection(torch.from_numpy(p))
+    want = jgeo.perspective_projection(jnp.asarray(p))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_normalize_head(rng):
+    p = _poses(rng, 21) * 300.0
+    got = tgeo.normalize_head(torch.from_numpy(p))
+    want = jgeo.normalize_head(jnp.asarray(p))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-8)
+
+
+def test_add_noise_takes_its_draw(rng, monkeypatch):
+    z = _poses(rng, 6)
+    eps = _poses(rng, 6)
+    monkeypatch.setattr(jgeo.jax.random, "normal", lambda key, shape, dtype: jnp.asarray(eps))
+    want = jgeo.add_noise(None, jnp.asarray(z), 0.2)
+    got = tgeo.add_noise(torch.from_numpy(z), 0.2, torch.from_numpy(eps))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_bone_lengths(rng):
+    p = _poses(rng, 8, 51)
+    got = tsk.get_bone_lengths_all(torch.from_numpy(p))
+    want = jsk.get_bone_lengths_all(jnp.asarray(p))
+    assert tuple(got.shape) == (8, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
 
 
 def test_test_split_subjects():

@@ -9,8 +9,10 @@ machine without jax, where tests/conftest.py (which imports jax) is skipped:
 import pytest
 import torch
 
+from links_tpu_torch.core.nn import BF16, F32
 from links_tpu_torch.models.lifters import Lifter, StackedLifter
 from links_tpu_torch.ops import fused_infer as K2
+from links_tpu_torch.ops import resblock as K1
 
 # Kernel vs plain version: both sum bf16 x bf16 products in f32 in different
 # orders, and a last-bit difference can flip the bf16 rounding of the next
@@ -74,3 +76,99 @@ def test_fused_sides_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         K2.fused_sides_forward({**prep, "w_chain": prep["w_chain"].float()}, x, x)
     with pytest.raises(ValueError, match="b_up"):
         K2.fused_sides_forward({**prep, "b_up": prep["b_up"].cpu()}, x, x)
+
+
+# K1 against its plain version, with the tolerances of chip_smoke.py: forward
+# outputs elementwise (sums in another order, f32 operands as three bf16
+# terms, and under bf16 a flipped rounding of h); bf16-policy dx, dW1, dW2
+# within one bf16 unit in the last place of the largest value (they are
+# rounded to bf16 after the sum), with fewer than K1_FLIP_SHARE of their
+# elements off by more than K1_FLIP_REL of their own value (rounding g1, g2
+# to one bf16 term, as the Pallas kernel does, moves 25-54% of them); every
+# other gradient within 1e-3 of the largest value (sums over the batch of
+# such flips, or f32 sums whose error scales with the partial sums, not with
+# the element).
+K1_TOL = {"rtol": 1e-3, "atol": 1e-3}
+K1_BF16_ULP = 2.0 ** -7
+K1_FLIP_REL, K1_FLIP_SHARE = 1e-5, 0.1
+
+
+def _k1_grad_close(name, got, want, policy):
+    err = (got - want).abs()
+    if policy is BF16 and name in ("dx", "dw1", "dw2"):
+        assert float(err.max()) <= K1_BF16_ULP * float(want.abs().max()), name
+        assert float((err > K1_FLIP_REL * want.abs()).float().mean()) < K1_FLIP_SHARE, name
+    else:
+        assert float(err.max()) <= K1_TOL["rtol"] * float(want.abs().max()), name
+
+
+def _k1_inputs(batch, hidden, g, device):
+    bound = hidden ** -0.5
+    w1, w2 = (torch.empty(hidden, hidden).uniform_(-bound, bound, generator=g) for _ in "12")
+    b1, b2 = (torch.empty(hidden).uniform_(-bound, bound, generator=g) for _ in "12")
+    x, dy = (torch.randn(batch, hidden, generator=g) for _ in "xy")
+    return [t.to(device) for t in (x, w1, b1, w2, b2, dy)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [BF16, F32], ids=["bf16", "f32"])
+def test_res_block_kernels_match_plain_version(cuda, policy):
+    g = torch.Generator().manual_seed(3)
+    for batch in (1, 37, 512):
+        x, w1, b1, w2, b2, dy = _k1_inputs(batch, 1024, g, cuda)
+        before = (K1.res_block_forward.launches, K1.res_block_backward.launches)
+        fwd = K1.res_block_forward(x, w1, b1, w2, b2, policy)
+        want = K1.res_block_forward_reference(x, w1, b1, w2, b2, policy)
+        for a, b in zip(fwd, want):
+            torch.testing.assert_close(a, b, **K1_TOL)
+        got = K1.res_block_backward(dy, x, w1, w2, *want[1:], policy)
+        ref = K1.res_block_backward_reference(dy, x, w1, w2, *want[1:], policy)
+        torch.cuda.synchronize()
+        assert (K1.res_block_forward.launches, K1.res_block_backward.launches) == (
+            before[0] + 1, before[1] + 1)
+        for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, ref):
+            _k1_grad_close(name, a, b, policy)
+
+
+@pytest.mark.cuda
+def test_res_block_autograd_runs_the_kernels(cuda):
+    g = torch.Generator().manual_seed(4)
+    x, w1, b1, w2, b2, dy = _k1_inputs(64, 256, g, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+    before = K1.res_block_backward.launches
+    K1.res_block(*leaves, BF16).backward(dy)
+    assert K1.res_block_backward.launches == before + 1
+    plain = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+    K1.res_block_reference(*plain, BF16).backward(dy)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), leaves, plain):
+        _k1_grad_close(name, a.grad, b.grad, BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [BF16, F32], ids=["bf16", "f32"])
+def test_res_block_kernels_are_deterministic(cuda, policy):
+    """Each output tile is summed by one block in a fixed order: no atomics."""
+    g = torch.Generator().manual_seed(5)
+    x, w1, b1, w2, b2, dy = _k1_inputs(300, 1024, g, cuda)
+    first = K1.res_block_forward(x, w1, b1, w2, b2, policy)
+    second = K1.res_block_forward(x, w1, b1, w2, b2, policy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    grads = [K1.res_block_backward(dy, x, w1, w2, *first[1:], policy) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.cuda
+def test_res_block_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    g = torch.Generator().manual_seed(6)
+    x, w1, b1, w2, b2, _ = _k1_inputs(8, 128, g, cuda)
+    with pytest.raises(ValueError, match="w1"):
+        K1.res_block_forward(x, w1.double(), b1, w2, b2, BF16)
+    with pytest.raises(ValueError, match="b2"):
+        K1.res_block_forward(x, w1, b1, w2, b2.cpu(), BF16)
+    with pytest.raises(ValueError, match="not contiguous"):
+        K1.res_block_forward(x, w1.T, b1, w2, b2, BF16)
+    with pytest.raises(ValueError, match="w2"):
+        K1.res_block_forward(x, w1, b1, w2[:64], b2, BF16)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        K1.res_block_forward(x[:, :100].contiguous(), w1[:100, :100].contiguous(), b1[:100],
+                             w2[:100, :100].contiguous(), b2[:100], BF16)
