@@ -10,7 +10,7 @@ Phases, each fatal on failure:
      torch.Generator): the fused serving kernel (K2) at the serving batches,
      the residual-block kernels (K1 forward and backward) at the training,
      serving and validation batches under both dtype policies, bitwise
-     repeatable;
+     repeatable, with K1's split kernel (bitwise) and its weight-plane cache;
   3. one stage-3a training step on the card against the same step on the
      CPU (full-width lifters and 8-block flows at hidden 1024, batch 64, the
      same draws), counting the residual-block launches of the step;
@@ -18,9 +18,13 @@ Phases, each fatal on failure:
      corpus: ``links_tpu_torch.cli.lift`` (--fused, --policy bf16, f32), then
      ``links_tpu_torch.cli.train_left_right_lifter`` for one epoch and
      ``lift`` (--fused, --policy bf16) with the lifters it wrote;
-  5. time each kernel, its plain version, a library yardstick (the same
-     function as torch calls replayed from a CUDA graph) and its bound, and
-     the training step at batch 256.
+  5. time the training step at batch 256 (first: a torch.profiler session
+     often leaves the process slower), then each kernel, its plain version, a
+     library yardstick (the same function as torch calls replayed from a
+     CUDA graph) and its bound. K1 is timed on the device from a CUDA graph
+     of its wrapper's calls, as the yardstick is, and eagerly beside it
+     (the host's enqueue then sets the pace), with each of its kernels'
+     device time from torch.profiler.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -102,9 +106,11 @@ STEP_RTOL, STEP_ATOL, STEP_GRAD_REL = 1e-3, 1e-4, 2e-2
 # Residual-block calls per training step: 7 blocks x 2 sides x (lift +
 # re-lift) forward; backward only where a loss reads the output: no loss
 # reads the re-lift's elevation angles, so its 3 angle blocks per side get no
-# gradient.
+# gradient. Under bf16 each block's two weights are cast to bf16 planes once
+# per step (the re-lift and the backward find them cached).
 K1_FWD_PER_STEP = 2 * 2 * 7
 K1_BWD_PER_STEP = K1_FWD_PER_STEP - 2 * 3
+K1_CASTS_PER_STEP = 2 * 7 * 2
 KERNEL_BATCHES = (1, 37, 256, 512)
 TIMED_BATCHES = (1, 256, 512)
 MAIN_BATCH = 256          # --batch-size of the main paths
@@ -153,6 +159,7 @@ def _graphed(fn):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = fn()
+    graph.fn = fn  # the tensors fn reads must outlive the graph that replays it
     return graph, out
 
 
@@ -290,6 +297,38 @@ def _one_term_backward(dy, x, w1, w2, a1, h, a2):
     return dy + r(g1 @ r(w1)), r(g1.mT @ r(x)), r(g2.mT @ r(h))
 
 
+def phase_k1_split_and_cache():
+    """K1's split kernel against its plain version (bitwise: both round to
+    nearest even) at every K1 batch, and the weight-plane cache on the card:
+    one cast per weight version, a fresh plane after an in-place update."""
+    for batch in K1_BATCHES:
+        x, w1, b1, w2, b2, dy = _k1_inputs(batch, seed=batch)
+        a2 = K1.res_block_forward_reference(x, w1, b1, w2, b2, BF16)[3]
+        for name, args in (("x", (x, 1)), ("g2 = dy * lrelu'(a2)", (dy, 2, a2))):
+            before = K1.split_planes.launches
+            got = K1.split_planes(*args)
+            torch.cuda.synchronize()
+            want = K1.split_reference(*(t.cpu() if torch.is_tensor(t) else t for t in args))
+            if K1.split_planes.launches != before + 1 or not all(
+                    torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+                raise AssertionError(f"split kernel {name} B={batch}: planes differ from the "
+                                     f"plain split")
+    _log(f"[kernel] split kernel: x (one plane) and g2 (hi and lo planes) bitwise equal to the "
+         f"plain split at B={'/'.join(map(str, K1_BATCHES))}")
+    w = _k1_inputs(1, seed=11)[1].requires_grad_(True)
+    before = K1.weight_plane.casts
+    plane = K1.weight_plane(w)
+    same = K1.weight_plane(w) is plane
+    with torch.no_grad():
+        w.mul_(0.5)  # an in-place update, as Adam's
+    fresh = K1.weight_plane(w)
+    if not (same and fresh is not plane and K1.weight_plane.casts == before + 2
+            and torch.equal(fresh, w.detach().to(torch.bfloat16))):
+        raise AssertionError("the weight-plane cache did not return one plane per version")
+    _log("[kernel] weight-plane cache: one bf16 cast per weight version, recast after an "
+         "in-place update, equal to w.to(torch.bfloat16)")
+
+
 def phase_k1_vs_plain() -> tuple[float, float]:
     """-> (worst forward error, worst backward error) over every batch and
     policy."""
@@ -302,13 +341,20 @@ def phase_k1_vs_plain() -> tuple[float, float]:
             fwd2 = K1.res_block_forward(x, w1, b1, w2, b2, policy)
             torch.cuda.synchronize()
             want = K1.res_block_forward_reference(x, w1, b1, w2, b2, policy)
-            errs_f = [_k1_check(f"res_block_forward {pname} B={batch} {n}", g, w, "elementwise")
-                      for n, g, w in zip(("y", "a1", "h", "a2"), fwd, want)]
+            # under bf16 the forward saves the bf16 planes of h and x: h is held
+            # to its plain plane by the rule of a rounded output, x bitwise
+            saved = K1.kernel_saved(x, *want[1:], policy)
+            errs_f = [_k1_check(f"res_block_forward {pname} B={batch} {n}", g.float(),
+                                w.float(), "ulp" if policy is BF16 and n == "h" else "elementwise")
+                      for n, g, w in zip(("y", "a1", "h", "a2"), fwd, (want[0], *saved[1:]))]
+            if not torch.equal(fwd[4], saved[0]):
+                raise AssertionError(f"res_block_forward {pname} B={batch}: the saved x differs")
             # the backward from the plain forward's saved activations: the
             # same inputs for both versions
-            bwd = K1.res_block_backward(dy, x, w1, w2, *want[1:], policy)
+            xs, a1, hs, a2 = saved
+            bwd = K1.res_block_backward(dy, xs, w1, w2, a1, hs, a2, policy)
             torch.cuda.synchronize()
-            bwd2 = K1.res_block_backward(dy, x, w1, w2, *want[1:], policy)
+            bwd2 = K1.res_block_backward(dy, xs, w1, w2, a1, hs, a2, policy)
             torch.cuda.synchronize()
             ref = K1.res_block_backward_reference(dy, x, w1, w2, *want[1:], policy)
             errs_b = [_k1_check(f"res_block_backward {pname} B={batch} {n}", g, w,
@@ -332,7 +378,8 @@ def phase_k1_vs_plain() -> tuple[float, float]:
                          f"(one-term control {' '.join(f'{v:.4f}' for v in control)}, "
                          f"limit {K1_FLIP_SHARE})")
             _log(f"[kernel] res_block {pname} B={batch}: max abs err forward "
-                 f"y/a1/h/a2 {' '.join(f'{e:.2e}' for e in errs_f)}; backward "
+                 f"y/a1/h{' (bf16 plane)' if policy is BF16 else ''}/a2 "
+                 f"{' '.join(f'{e:.2e}' for e in errs_f)}; backward "
                  f"dx/dW1/db1/dW2/db2 {' '.join(f'{e:.2e}' for e in errs_b)}{flips}; two "
                  f"runs bitwise equal")
     return worst_f, worst_b
@@ -370,17 +417,23 @@ def phase_step_card_vs_cpu() -> tuple[int, int]:
         fr = LifterFrozen(*(copy.deepcopy(f).to(dev) for f in frozen))
         grads_fn = build_left_right_grads(fr, cfg)
         K1.res_block_forward.launches = K1.res_block_backward.launches = 0
+        K1.res_block_forward.kernel_launches = K1.res_block_backward.kernel_launches = 0
+        K1.weight_plane.casts = 0
         aux, grads = grads_fn(model, batch.to(dev), StepDraws(*(t.to(dev) for t in draws)))
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = (K1.res_block_forward.launches, K1.res_block_backward.launches)
+            per_call = (K1.res_block_forward.kernel_launches / launches[0],
+                        K1.res_block_backward.kernel_launches / launches[1])
+            casts = K1.weight_plane.casts
         Adam(model.parameters(), cfg.optim, steps_per_epoch=40).step(grads)
         out[dev] = ({k: float(v) for k, v in aux.items()}, [t.cpu() for t in grads],
                     [p.detach().cpu() for p in model.parameters()])
-    if launches != (K1_FWD_PER_STEP, K1_BWD_PER_STEP):
+    if launches != (K1_FWD_PER_STEP, K1_BWD_PER_STEP) or casts != K1_CASTS_PER_STEP:
         raise AssertionError(f"one training step launched the residual-block kernels "
-                             f"{launches} times, expected {K1_FWD_PER_STEP} forward and "
-                             f"{K1_BWD_PER_STEP} backward")
+                             f"{launches} times with {casts} weight casts, expected "
+                             f"{K1_FWD_PER_STEP} forward, {K1_BWD_PER_STEP} backward and "
+                             f"{K1_CASTS_PER_STEP} casts")
     (aux_c, grads_c, params_c), (aux_g, grads_g, params_g) = out["cpu"], out["cuda"]
     for k, v in aux_c.items():
         if not abs(aux_g[k] - v) <= STEP_ATOL + STEP_RTOL * abs(v):
@@ -395,7 +448,8 @@ def phase_step_card_vs_cpu() -> tuple[int, int]:
          f"{aux_c['loss']:.6f}, worst loss term rel err "
          f"{max(abs(aux_g[k] - v) / max(abs(v), 1e-12) for k, v in aux_c.items()):.2e}, "
          f"worst gradient rel L2 err {max(rel):.2e} over {len(rel)} tensors, params after "
-         f"Adam within {upd:.2e}; K1 launches {launches[0]} forward + {launches[1]} backward")
+         f"Adam within {upd:.2e}; K1 calls {launches[0]} forward + {launches[1]} backward, "
+         f"{per_call[0]:.0f} + {per_call[1]:.0f} CUDA launches per call, {casts} weight casts")
     return launches
 
 
@@ -530,14 +584,37 @@ def _k1_bounds(batch: int):
             _bound(2 * weights + 3 * act, 6 * product))
 
 
+def _kernel_breakdown(fn, calls: int = 20) -> str:
+    """Device ms per launch of each CUDA kernel ``fn`` launches, and its
+    launches per call as the profiler recorded them (torch.profiler; a
+    count below the launches per call means events were dropped)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total / 1e3 / e.count, e.count / calls,
+             e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0])
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    return ", ".join(f"{name} {ms:.4f} (x{n:.2f})" for ms, n, name in sorted(rows, reverse=True))
+
+
 def phase_k1_times(smi):
     """K1 forward and backward per call at the training step's batch (2 x 256)
     and the validation batch, bf16 policy; the f32 policy at the validation
-    batch (the validation lifts run f32). -> rows of the bf16 training batch."""
+    batch (the validation lifts run f32). The kernels run with a warm
+    weight-plane cache; the cast of one weight is timed beside them. -> rows
+    of the bf16 training batch, and the ms of one weight cast."""
+    w = _k1_inputs(1, seed=12)[1]
+    cast_ms, _ = _time_ms(lambda: w.to(torch.bfloat16))
+    _log(f"[time] weight cast to bf16 ({HIDDEN} x {HIDDEN}): {cast_ms:.4f} ms, "
+         f"{K1_CASTS_PER_STEP} per training step: {K1_CASTS_PER_STEP * cast_ms:.4f} ms on {smi}")
     rows = {}
     for batch, policy, pname in ((512, BF16, "bf16"), (4096, BF16, "bf16"), (4096, F32, "f32")):
         x, w1, b1, w2, b2, dy = _k1_inputs(batch, seed=2000 + batch)
-        saved = K1.res_block_forward_reference(x, w1, b1, w2, b2, policy)[1:]
+        plain_saved = K1.res_block_forward_reference(x, w1, b1, w2, b2, policy)[1:]
+        xs, a1, hs, a2 = K1.kernel_saved(x, *plain_saved, policy)
         lib_f, lib_b = _k1_library(x, w1, b1, w2, b2, dy,
                                    torch.bfloat16 if policy is BF16 else torch.float32)
         bounds = _k1_bounds(batch)
@@ -545,27 +622,34 @@ def phase_k1_times(smi):
                 ("forward", lambda: K1.res_block_forward(x, w1, b1, w2, b2, policy),
                  lambda: K1.res_block_forward_reference(x, w1, b1, w2, b2, policy), lib_f,
                  bounds[0]),
-                ("backward", lambda: K1.res_block_backward(dy, x, w1, w2, *saved, policy),
-                 lambda: K1.res_block_backward_reference(dy, x, w1, w2, *saved, policy), lib_b,
-                 bounds[1])):
+                ("backward", lambda: K1.res_block_backward(dy, xs, w1, w2, a1, hs, a2, policy),
+                 lambda: K1.res_block_backward_reference(dy, x, w1, w2, *plain_saved, policy),
+                 lib_b, bounds[1])):
             row = {}
-            row["ms"], host_ms = _time_ms(kernel)
+            eager_ms, host_ms = _time_ms(kernel)
+            row["ms"], _ = _time_ms(_graphed(kernel)[0].replay)
+            row["eager_ms"] = eager_ms
             row["plain_ms"], _ = _time_ms(plain)
             row["library_ms"], _ = _time_ms(lib.replay)
             row["bound_ms"], row["bound_by"] = bound, by
             if batch == 512:
                 rows[which] = row
+            _log(f"[time] res_block_{which} {pname} B={batch} by kernel (ms per launch): "
+                 f"{_kernel_breakdown(kernel)}")
             _log(f"[time] res_block_{which} {pname} B={batch}: kernel {row['ms']:.4f} ms "
-                 f"(wrapper's host time {host_ms:.4f} ms), plain {row['plain_ms']:.4f} ms, "
-                 f"library ({pname} torch calls, CUDA graph) {row['library_ms']:.4f} ms, "
-                 f"bound {bound:.4f} ms ({by}) on {smi}")
-    return rows
+                 f"(CUDA graph; eager {eager_ms:.4f} ms, wrapper's host time {host_ms:.4f} ms), "
+                 f"plain {row['plain_ms']:.4f} ms, library ({pname} torch calls, CUDA graph) "
+                 f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}); weight cast "
+                 f"{cast_ms:.4f} ms, not in the kernel's time, on {smi}")
+    return rows, cast_ms
 
 
-def phase_step_time(smi, k1_rows):
+def phase_step_time(smi):
     """The training step at batch 256 (bf16 policy, bf16 Adam moments, the
     trainer's defaults), after warm-up: device ms (CUDA events) and host
-    ms per step, and a breakdown by part from the same functions."""
+    ms per step, and a breakdown by part from the same functions. It runs
+    before any other phase opens torch.profiler or captures a CUDA graph,
+    so that it times the step as the trainer runs it."""
     stacked, frozen = _full_width_models(seed=4)
     stacked, frozen = stacked.cuda(), LifterFrozen(*(f.cuda() for f in frozen))
     cfg = LifterTrainConfig(nll_cap=500.0, batch_size=MAIN_BATCH,
@@ -615,14 +699,11 @@ def phase_step_time(smi, k1_rows):
         if rep >= 2:
             for i, k in enumerate(parts):
                 parts[k] += ev[i].elapsed_time(ev[i + 1]) / reps
-    k1_ms = (K1_FWD_PER_STEP * k1_rows["forward"]["ms"]
-             + K1_BWD_PER_STEP * k1_rows["backward"]["ms"])
     _log(f"[time] training step B={MAIN_BATCH}: device {step_ms:.4f} ms, host {host_ms:.4f} "
          f"ms per step, {MAIN_BATCH / max(step_ms, host_ms) * 1e3:.1f} poses/s; kernels busy "
          f"{kernel_ms:.4f} ms per step ({kernel_ms / step_ms:.1%} of the step; profiled), "
          f"{launches / n_prof:.0f} kernel launches per step; parts between events (ms) "
-         f"{', '.join(f'{k} {v:.4f}' for k, v in parts.items())}; K1 at B=512 x "
-         f"{K1_FWD_PER_STEP} + {K1_BWD_PER_STEP} calls: {k1_ms:.4f} ms on {smi}")
+         f"{', '.join(f'{k} {v:.4f}' for k, v in parts.items())} on {smi}")
     return step_ms, host_ms
 
 
@@ -641,14 +722,20 @@ def main() -> int:
                             Lifter(11, HIDDEN, generator=g)).cuda()
     prep = K2.prepare_fused_weights(stacked)
     k2_err = phase_kernel_vs_plain(prep)
+    phase_k1_split_and_cache()
     k1_err = phase_k1_vs_plain()
     phase_step_card_vs_cpu()
     k2_launches, train = phase_main_path(stacked)
     smi = _smi()
     _log(smi)
+    phase_step_time(smi)
     k2_rows = phase_times(prep, smi)
-    k1_rows = phase_k1_times(smi)
-    phase_step_time(smi, k1_rows)
+    k1_rows, cast_ms = phase_k1_times(smi)
+    k1_ms = (K1_FWD_PER_STEP * k1_rows["forward"]["ms"]
+             + K1_BWD_PER_STEP * k1_rows["backward"]["ms"] + K1_CASTS_PER_STEP * cast_ms)
+    _log(f"[time] K1 in a training step at B=512: {K1_FWD_PER_STEP} forward + "
+         f"{K1_BWD_PER_STEP} backward calls + {K1_CASTS_PER_STEP} weight casts = {k1_ms:.4f} ms "
+         f"on {smi}")
 
     src = "links_tpu_torch/ops/csrc/"
     kernels = [

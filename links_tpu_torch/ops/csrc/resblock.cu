@@ -16,36 +16,63 @@
 //     bf16, and the four products (dh, g1 W1, dW1, dW2) are rounded to bf16, as the transposes
 //     of JAX's bf16 dots are; db1 and db2 are f32 sums.
 //   f32: every product at f32 precision (never TF32).
-// Tensor cores multiply bf16, so each operand is staged from its f32 master in device memory
-// into shared memory as a sum of bf16 terms, split as it is staged (no separate cast launch):
-// one term for an operand the policy rounds to bf16, two (hi + lo, 16 significant bits) for an
-// f32 gradient under the bf16 policy, three (24 bits, f32's own precision) under the f32
-// policy. A tile product sums the term products i + j < max(terms) with wmma bf16 16x16x16
-// fragments into f32 accumulators.
-//
-// Launches: forward 2 (a1 and h; then a2 and y); backward 5 (dh -> g1; dW2; dx; dW1; db1 and
-// db2). Every output tile belongs to one block, which loops over the whole reduction (K = H,
-// or K = B for dW), so there are no float atomics and repeated runs agree bitwise. The forward
-// saves a1, h and a2 (3 B H f32, 6 MB at B = 512) for the backward instead of recomputing them
-// as the TPU kernel does: the recompute would add two products to the backward's four, and the
-// saved activations cost one write and one read.
+// Tensor cores multiply bf16, so every operand is a sum of bf16 terms: one term for an operand
+// the policy rounds to bf16, two (hi = bf16(v), lo = bf16(v - hi): 16 significant bits) for an
+// f32 gradient under the bf16 policy, three (24 bits, f32's own precision) under the f32 policy.
+// A product sums the term products i + j < max(terms).
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16) at the training step's shape
 // B = 512, H = 1024, counting the block's own inputs and outputs once (f32 masters):
 //   forward: 2 products, 2.15 GFLOP -> 2.2 us; W1, W2, b1, b2, x in and y out, 12.6 MB -> 3.8 us.
 //   backward: from (x, W, b, dy) to (dx, dW, db) a block needs 6 products (a1 and a2 recomputed),
 //     6.4 GFLOP -> 6.5 us; 23.1 MB -> 6.9 us.
-// Both are bound by bytes. chip_smoke.py recomputes these for the shapes it times.
-// This first version is a plain tiled GEMM: 64 x 64 output tiles, a 32-deep K step staged
-// through registers (the next step's global loads are in flight during this step's products),
-// one shared-memory buffer. Not yet: TMA, wgmma, a deeper pipeline, both sides in one launch.
+// Both are bound by bytes at B = 512 and by operations at B = 4096. chip_smoke.py recomputes
+// these for the shapes it times.
+//
+// bf16 policy (the trainer's default): TMA + wgmma. Every operand is a bf16 array in device
+// memory (a "plane") that TMA copies as it is:
+//   - W1, W2: one plane each, cast once per weight version by the wrapper (ops/resblock.py);
+//   - x: one plane, written by split_kernel and saved by the forward for dW1;
+//   - h: one plane, written by the first forward product's epilogue (the f32 h is not kept);
+//   - g2 = dy * lrelu'(a2): hi and lo planes, written by split_kernel;
+//   - g1: hi and lo planes, written by the dh product's epilogue.
+// Every product is then one GEMM mainloop, C (M x N) = sum over A's terms t of A_t B^T, over a
+// list of term pairs (t, 0): (0, 0) in the forward, (0, 0) and (1, 0) in the backward, so a
+// two-term product is a GEMM whose K is twice as long. A block owns a BM x BN output tile: one
+// producer warp issues cp.async.bulk.tensor (TMA, 128-byte swizzle, 64-deep K tiles) into a
+// ring of 3 or 4 stages of shared memory with a full and an empty mbarrier per stage; one or
+// two consumer warpgroups issue wgmma.mma_async m64nBNk16 (bf16 x bf16 -> f32) on the arrived
+// tiles, keeping one group in flight. Operands contiguous along M or N (W in dh and dx, g and
+// x / h in dW) are read through wgmma's transpose bits from the tiles TMA copied unchanged;
+// rows outside a plane (a ragged batch) arrive as zeros. The epilogue parks the accumulators
+// in the drained ring and writes whole rows from there (bias, lrelu, residual, bf16 rounding
+// of the backward's products, plane writes, the row mask). Two tile shapes: 64 x 64 with one
+// consumer warpgroup, and 128 x 128 with two where that still gives every SM a block (the
+// forward, dh and dx at B = 4096). db1 and db2 are sums of per-16-row column sums, made where
+// g1 and g2 are made (the dh epilogue, split_kernel), in a fixed order. Tensor maps are
+// encoded on the host and kept by address and shape. Launches: forward 3 (split x; a1 and the
+// h plane; a2 and y); backward 6 (split g2; dh -> g1; dW2; dx; dW1; db1 and db2).
+//
+// f32 policy: the first design, kept as it was. A plain tiled GEMM with wmma bf16 16x16x16
+// fragments: 64 x 64 output tiles, a 32-deep K step staged through registers from the f32
+// masters (each operand split into three bf16 terms as it is stored to shared memory), one
+// shared-memory buffer. Launches: forward 2, backward 5.
+//
+// Under both policies every output tile belongs to one block, which loops over the whole
+// reduction (K = H, or K = B for dW), so there are no float atomics and repeated runs agree
+// bitwise. The forward saves a1, h and a2 (h, and x, as bf16 planes under bf16) for the
+// backward instead of recomputing them as the TPU kernel does: the recompute would add two
+// products to the backward's four.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
+#include <unordered_map>
 
 using namespace nvcuda;
 
@@ -77,7 +104,6 @@ struct Gemm {
   float* out1;
   const float* bias;  // (N)
   const float* aux;   // the epilogue's elementwise input
-  int round_out;      // round the product to bf16 (the bf16 policy's backward)
 };
 
 __device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : kSlope * v; }
@@ -159,7 +185,6 @@ __device__ __forceinline__ void epilogue(const Gemm& g, const float4 acc, long l
   }
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const float p = g.round_out ? round_bf16(v[c]) : v[c];
     if (EPI == kFwd1) {  // a1, h
       r0[c] = v[c];
       r1[c] = lrelu(v[c]);
@@ -167,11 +192,11 @@ __device__ __forceinline__ void epilogue(const Gemm& g, const float4 acc, long l
       r0[c] = v[c];
       r1[c] = lrelu(v[c]) + aux[c];
     } else if (EPI == kDh) {  // g1 = dh * lrelu'(a1)
-      r0[c] = p * dlrelu(aux[c]);
+      r0[c] = v[c] * dlrelu(aux[c]);
     } else if (EPI == kDx) {  // dx = dy + g1 W1
-      r0[c] = aux[c] + p;
+      r0[c] = aux[c] + v[c];
     } else {  // dW
-      r0[c] = p;
+      r0[c] = v[c];
     }
   }
   *reinterpret_cast<float4*>(g.out0 + o) = make_float4(r0[0], r0[1], r0[2], r0[3]);
@@ -254,35 +279,613 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm g) {
   }
 }
 
-// db1 = sum over rows of g1 and db2 = sum over rows of dy * lrelu'(a2), both (H). A block owns
-// 32 columns of one of them; its 8 warps sum interleaved rows, combined in warp order.
-__global__ void __launch_bounds__(kThreads)
-    bias_grads_kernel(const float* g1, const float* dy, const float* a2, float* db1, float* db2,
-                      int B, int H) {
-  __shared__ float part[kThreads / 32][33];
-  const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + lane;  // in [0, 2H)
+// db1 = sum over rows of p1 and db2 = sum over rows of p2 * lrelu'(q2), or of p2 if q2 is null,
+// both (H), from `rows` rows: g1, dy and a2 (B rows) under the f32 policy, the per-16-row partial
+// sums of g1 and g2 under bf16. A block owns kSumCols columns of one of them; each of its
+// kSumGroups thread groups sums every kSumGroups-th row into kSumUnroll independent partial sums
+// (loads in flight), and the partials are combined in a fixed order: no atomics, so repeated
+// runs agree bitwise.
+constexpr int kSumThreads = 512;
+constexpr int kSumCols = 16;  // a half warp reads 64 contiguous bytes of a row
+constexpr int kSumGroups = kSumThreads / kSumCols;
+constexpr int kSumUnroll = 8;
+
+__global__ void __launch_bounds__(kSumThreads)
+    bias_grads_kernel(const float* p1, const float* p2, const float* q2, float* db1, float* db2,
+                      int rows, int H) {
+  __shared__ float part[kSumGroups][kSumCols + 1];
+  const int lane = threadIdx.x % kSumCols, grp = threadIdx.x / kSumCols;
+  const int c = blockIdx.x * kSumCols + lane;  // in [0, 2H)
   const bool second = c >= H;
   const int col = second ? c - H : c;
-  float acc = 0.f;
-  for (int r = grp; r < B; r += kThreads / 32) {
+  auto value = [&](int r) {
     const long long o = (long long)r * H + col;
-    acc += second ? __ldg(dy + o) * dlrelu(__ldg(a2 + o)) : __ldg(g1 + o);
+    return second ? __ldg(p2 + o) * (q2 ? dlrelu(__ldg(q2 + o)) : 1.f) : __ldg(p1 + o);
+  };
+  float acc[kSumUnroll];
+#pragma unroll
+  for (int u = 0; u < kSumUnroll; ++u) acc[u] = 0.f;
+  int r = grp;
+  for (; r + (kSumUnroll - 1) * kSumGroups < rows; r += kSumUnroll * kSumGroups) {
+#pragma unroll
+    for (int u = 0; u < kSumUnroll; ++u) acc[u] += value(r + u * kSumGroups);
   }
-  part[grp][lane] = acc;
+  for (; r < rows; r += kSumGroups) acc[0] += value(r);
+  float s = acc[0];
+#pragma unroll
+  for (int u = 1; u < kSumUnroll; ++u) s += acc[u];
+  part[grp][lane] = s;
   __syncthreads();
   if (grp == 0) {
-    float s = part[0][lane];
-#pragma unroll
-    for (int k = 1; k < kThreads / 32; ++k) s += part[k][lane];
+    s = part[0][lane];
+    for (int k = 1; k < kSumGroups; ++k) s += part[k][lane];
     (second ? db2 : db1)[col] = s;
   }
+}
+
+cudaError_t bias_grads(const void* p1, const void* p2, const void* q2, void* db1, void* db2,
+                       int rows, int H, cudaStream_t stream) {
+  bias_grads_kernel<<<2 * H / kSumCols, kSumThreads, 0, stream>>>(
+      static_cast<const float*>(p1), static_cast<const float*>(p2), static_cast<const float*>(q2),
+      static_cast<float*>(db1), static_cast<float*>(db2), rows, H);
+  return cudaGetLastError();
 }
 
 template <bool A_KCONT, bool B_KCONT, int NA, int NB, int EPI>
 cudaError_t launch(const Gemm& g, cudaStream_t stream) {
   const dim3 grid(g.N / BN, (g.M + BM - 1) / BM);
   gemm_kernel<A_KCONT, B_KCONT, NA, NB, EPI><<<grid, kThreads, 0, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------------------------
+// The bf16 policy: bf16 planes, a TMA ring and wgmma.
+
+constexpr int kTK = 64;                // K tile: 64 bf16 = one 128-byte swizzled row
+constexpr int kRingBytes = 96 * 1024;  // a ring two blocks of an SM can hold side by side
+constexpr int kAtomBytes = 64 * 128;   // 64 rows of 128 bytes: one TMA box of 64 x 64
+constexpr int kSplitThreads = 64;  // 256 columns: 128 blocks at B = 512, H = 1024
+
+// The ring's depth for stages of `stage_bytes`: within kRingBytes (two blocks per SM, so one
+// block's epilogue overlaps the other's mainloop) where that leaves at least 3 stages, else 4
+// stages and one block per SM. On an H100 at B = 4096, 3 stages ran the forward's 128 x 128
+// products faster than 4, and 2 ran the two-term ones slower than 4.
+__host__ __device__ constexpr int ring_stages(int stage_bytes) {
+  return kRingBytes / stage_bytes == 3 ? 3 : 4;
+}
+
+// Stores four values as bf16 (8 bytes).
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                            *reinterpret_cast<const unsigned*>(&hi));
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+constexpr int kSumRows = 16;  // rows of one partial column sum (the split's and the dh tiles')
+
+// v (B x H f32), times lrelu'(mask) if mask is set, into hi = bf16(v) and, if lo is set,
+// lo = bf16(v - hi); if colsum is set, the column sums of each 16 rows of the masked v into
+// colsum (ceil(B / 16) x H). A thread owns 4 columns of 16 rows (blockIdx.y).
+__global__ void __launch_bounds__(kSplitThreads)
+    split_kernel(const float* __restrict__ v, const float* __restrict__ mask,
+                 __nv_bfloat16* __restrict__ hi, __nv_bfloat16* __restrict__ lo,
+                 float* __restrict__ colsum, int B, int H) {
+  const int c = 4 * (blockIdx.x * kSplitThreads + threadIdx.x);
+  if (c >= H) return;
+  float sum[4] = {0.f, 0.f, 0.f, 0.f};
+  constexpr int kBatch = 8;  // rows whose loads are in flight together
+  for (int r0 = blockIdx.y * kSumRows; r0 < (blockIdx.y + 1) * kSumRows; r0 += kBatch) {
+    float4 a[kBatch], m[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const long long o = static_cast<long long>(r0 + i) * H + c;
+      a[i] = r0 + i < B ? ldg4(v + o) : make_float4(0.f, 0.f, 0.f, 0.f);
+      m[i] = mask && r0 + i < B ? ldg4(mask + o) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (r0 + i >= B) break;
+      const long long o = static_cast<long long>(r0 + i) * H + c;
+      float e[4] = {a[i].x, a[i].y, a[i].z, a[i].w}, l[4];
+      if (mask) {
+        e[0] *= dlrelu(m[i].x);
+        e[1] *= dlrelu(m[i].y);
+        e[2] *= dlrelu(m[i].z);
+        e[3] *= dlrelu(m[i].w);
+      }
+      store_bf16x4(hi + o, e);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        l[k] = e[k] - round_bf16(e[k]);
+        sum[k] += e[k];
+      }
+      if (lo) store_bf16x4(lo + o, l);
+    }
+  }
+  if (colsum) st4(colsum + static_cast<long long>(blockIdx.y) * H + c, sum);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Waits until the phase of `bar` with parity `parity` has completed. A wait that lasts ~10 s
+// (a fault in the ring's bookkeeping) traps, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+// TMA: the box of `map` at (c0 along the contiguous dimension, c1 along the rows) into shared
+// memory at dst; its bytes count towards bar's transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a tile in the 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units), layout type 1 (128B).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the wgmma fences and waits.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (m64 x n) += A (64 x 16) B (16 x n)^T, bf16 from shared memory; TA / TB: the operand is
+// contiguous along M / N (wgmma's transpose bits) instead of along K.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db);
+
+#define K1_WGMMA_64(TA, TB)                                                                     \
+  template <>                                                                                   \
+  __device__ __forceinline__ void wgmma<64, TA, TB>(float(&d)[32], uint64_t da, uint64_t db) { \
+    asm volatile(                                                                               \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                            \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                                 \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "                                                     \
+        "%8, %9, %10, %11, %12, %13, %14, %15, "                                                \
+        "%16, %17, %18, %19, %20, %21, %22, %23, "                                              \
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "                                             \
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"                                                     \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),         \
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+          "+f"(d[31])                                                                           \
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));                                          \
+  }
+
+#define K1_WGMMA_128(TA, TB)                                                                     \
+  template <>                                                                                    \
+  __device__ __forceinline__ void wgmma<128, TA, TB>(float(&d)[64], uint64_t da, uint64_t db) { \
+    asm volatile(                                                                                \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                             \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                                 \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "                                                      \
+        "%8, %9, %10, %11, %12, %13, %14, %15, "                                                 \
+        "%16, %17, %18, %19, %20, %21, %22, %23, "                                               \
+        "%24, %25, %26, %27, %28, %29, %30, %31, "                                               \
+        "%32, %33, %34, %35, %36, %37, %38, %39, "                                               \
+        "%40, %41, %42, %43, %44, %45, %46, %47, "                                               \
+        "%48, %49, %50, %51, %52, %53, %54, %55, "                                               \
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "                                              \
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"                                                      \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),             \
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),          \
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),          \
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),          \
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),          \
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),          \
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),          \
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),          \
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                                                  \
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));                                           \
+  }
+
+K1_WGMMA_64(0, 0)
+K1_WGMMA_64(0, 1)
+K1_WGMMA_64(1, 1)
+K1_WGMMA_128(0, 0)
+K1_WGMMA_128(0, 1)
+K1_WGMMA_128(1, 1)
+
+// The tensor maps of one product: A's term planes and B's plane.
+struct Maps {
+  CUtensorMap a[2];
+  CUtensorMap b;
+};
+
+// The epilogue's operands; outputs and `aux` are row-major (M, N).
+struct Epi16 {
+  float* out0;              // a1, a2, g1, dx or dW
+  float* out1;              // y
+  __nv_bfloat16* plane0;    // the h plane, or g1's hi plane
+  __nv_bfloat16* plane1;    // g1's lo plane
+  const float* bias;        // (N)
+  const float* aux;         // x (y's residual), a1 (g1's mask) or dy (dx's residual)
+  float* colsum;            // g1's column sums of each 16 rows (ceil(M / 16) x N)
+  int M, N, K;
+};
+
+// The epilogue of the four accumulators at row m, columns n .. n + 3.
+template <int EPI>
+__device__ __forceinline__ float4 epilogue4(const Epi16& e, int m, int n, const float4 acc) {
+  if (m >= e.M) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const long long o = static_cast<long long>(m) * e.N + n;
+  float v[4] = {acc.x, acc.y, acc.z, acc.w}, r[4];
+  if constexpr (EPI == kFwd1 || EPI == kFwd2) {
+    const float4 b = *reinterpret_cast<const float4*>(e.bias + n);
+    v[0] += b.x;
+    v[1] += b.y;
+    v[2] += b.z;
+    v[3] += b.w;
+    st4(e.out0 + o, v);  // a1 or a2
+    if constexpr (EPI == kFwd1) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) r[c] = lrelu(v[c]);
+      store_bf16x4(e.plane0 + o, r);  // the h plane
+    } else {
+      const float4 x = ldg4(e.aux + o);
+      r[0] = lrelu(v[0]) + x.x;
+      r[1] = lrelu(v[1]) + x.y;
+      r[2] = lrelu(v[2]) + x.z;
+      r[3] = lrelu(v[3]) + x.w;
+      st4(e.out1 + o, r);  // y
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = round_bf16(v[c]);  // the backward's products are rounded
+    if constexpr (EPI == kDh) {  // g1 = dh * lrelu'(a1): hi and lo planes, and its sums
+      const float4 a = ldg4(e.aux + o);
+      v[0] *= dlrelu(a.x);
+      v[1] *= dlrelu(a.y);
+      v[2] *= dlrelu(a.z);
+      v[3] *= dlrelu(a.w);
+      store_bf16x4(e.plane0 + o, v);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) r[c] = v[c] - round_bf16(v[c]);
+      store_bf16x4(e.plane1 + o, r);
+      return make_float4(v[0], v[1], v[2], v[3]);  // summed into db1
+    } else if constexpr (EPI == kDx) {  // dx = dy + g1 W1
+      const float4 dy = ldg4(e.aux + o);
+      r[0] = dy.x + v[0];
+      r[1] = dy.y + v[1];
+      r[2] = dy.z + v[2];
+      r[3] = dy.w + v[3];
+      st4(e.out0 + o, r);
+    } else {  // dW
+      st4(e.out0 + o, v);
+    }
+  }
+  return acc;
+}
+
+// C (M x N) = sum over A's NA term planes t of A_t B^T, K deep. A's tile is WG x 64 rows; each
+// consumer warpgroup owns 64 of them and all BN columns. A_MN / B_MN: the operand's plane is
+// contiguous along M / N (a tile is then WG or BN / 64 boxes of 64 k-rows x 64), else along K
+// (one box of 64 k x rows).
+template <int WG, int TBN, int NA, bool A_MN, bool B_MN, int EPI>
+__global__ void __launch_bounds__(128 * WG + 32)
+    wgmma_gemm(__grid_constant__ const Maps maps, const Epi16 e) {
+  constexpr int kABytes = WG * kAtomBytes;  // one term of A's tile
+  constexpr int kBBytes = TBN * 128;
+  constexpr int kStageBytes = NA * kABytes + kBBytes;
+  constexpr int kStages = ring_stages(kStageBytes);
+  constexpr int kAcc = TBN / 2;  // accumulators per thread of m64 x TBN
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;  // the swizzle's alignment
+  const uint32_t full0 = base + kStages * kStageBytes;           // kStages full barriers,
+  const uint32_t empty0 = full0 + kStages * 8;                   // then kStages empty ones
+  const int m0 = blockIdx.y * 64 * WG, n0 = blockIdx.x * TBN;
+  const int nk = (e.K + kTK - 1) / kTK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);            // the producer's arrival, plus the bytes
+      mbar_init(empty0 + 8 * s, 4 * WG);      // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * WG) {  // the producer warp: one thread keeps the ring full
+    if (lane == 0) {
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty0 + 8 * s, ((it / kStages) - 1) & 1);
+        const uint32_t st = base + s * kStageBytes, bar = full0 + 8 * s;
+        const int k0 = it * kTK;
+        mbar_arrive_expect_tx(bar, kStageBytes);
+#pragma unroll
+        for (int t = 0; t < NA; ++t) {
+          if (A_MN) {
+#pragma unroll
+            for (int w = 0; w < WG; ++w)
+              tma_load(st + t * kABytes + w * kAtomBytes, &maps.a[t], bar, m0 + 64 * w, k0);
+          } else {
+            tma_load(st + t * kABytes, &maps.a[t], bar, k0, m0);
+          }
+        }
+        const uint32_t sb = st + NA * kABytes;
+        if (B_MN) {
+#pragma unroll
+          for (int j = 0; j < TBN / 64; ++j)
+            tma_load(sb + j * kAtomBytes, &maps.b, bar, n0 + 64 * j, k0);
+        } else {
+          tma_load(sb, &maps.b, bar, k0, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups
+  const int wg = warp / 4;
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  // Descriptors (128-byte swizzle): along K a k16 slice is 32 bytes into each 128-byte row of a
+  // K-contiguous tile, or 16 rows (2048 bytes) down an M- or N-contiguous one; 8-row groups lie
+  // 1024 bytes apart; the 64-wide boxes of an N-contiguous B tile lie kAtomBytes apart.
+  constexpr uint32_t kStepA = A_MN ? 2048 : 32, kStepB = B_MN ? 2048 : 32;
+  constexpr uint32_t kLboA = A_MN ? 1024 : 16;
+  constexpr uint32_t kLboB = B_MN ? (TBN > 64 ? kAtomBytes : 1024) : 16;
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % kStages;
+    mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+    const uint32_t st = base + s * kStageBytes;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < NA; ++t) {
+#pragma unroll
+      for (int kk = 0; kk < kTK / 16; ++kk) {
+        const uint32_t a = st + t * kABytes + wg * kAtomBytes + kk * kStepA;
+        const uint32_t b = st + NA * kABytes + kk * kStepB;
+        wgmma<TBN, A_MN, B_MN>(acc, smem_desc(a, kLboA, 1024), smem_desc(b, kLboB, 1024));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products are done: release its stage
+    fence_regs(acc);
+    if (it > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // The epilogue, through shared memory: once every consumer warp is done with the ring, each
+  // warp parks its 16 x TBN accumulators there (accumulator j of a thread lies at row
+  // lane / 4 (+ 8 for j % 4 >= 2), column 8 (j / 4) + 2 (lane % 4) + j % 2 of its warp's rows)
+  // and reads them back as whole rows of float4s, so that every store to device memory is 16
+  // (f32) or 8 (bf16) bytes and a warp writes full 128-byte lines.
+  constexpr int kLd = TBN + 8;  // floats per staged row: conflict-free 8-byte writes
+  static_assert(4 * WG * 16 * kLd * 4 <= kStages * kStageBytes, "the staging tile fits the ring");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * WG) : "memory");
+  float* tile = reinterpret_cast<float*>(smem_raw + (base - smem_addr(smem_raw))) +
+                warp * 16 * kLd;
+#pragma unroll
+  for (int j = 0; j < TBN / 8; ++j) {
+    float* p = tile + (lane / 4) * kLd + 8 * j + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(p) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(p + 8 * kLd) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  __syncwarp();
+  constexpr int kRowsPerStep = 128 / TBN;  // a warp's 32 float4s cover this many rows
+  const int row0 = m0 + 64 * wg + 16 * (warp % 4);
+  const int c = 4 * (lane % (TBN / 4));
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int r = 0; r < 16; r += kRowsPerStep) {
+    const int rr = r + lane / (TBN / 4);
+    const float4 g =
+        epilogue4<EPI>(e, row0 + rr, n0 + c, *reinterpret_cast<const float4*>(tile + rr * kLd + c));
+    sum.x += g.x;
+    sum.y += g.y;
+    sum.z += g.z;
+    sum.w += g.w;
+  }
+  if constexpr (EPI == kDh) {  // the column sums of the warp's 16 rows of g1, for db1
+    if constexpr (kRowsPerStep == 2) {  // the two half warps summed alternate rows
+      sum.x += __shfl_xor_sync(0xffffffffu, sum.x, 16);
+      sum.y += __shfl_xor_sync(0xffffffffu, sum.y, 16);
+      sum.z += __shfl_xor_sync(0xffffffffu, sum.z, 16);
+      sum.w += __shfl_xor_sync(0xffffffffu, sum.w, 16);
+    }
+    if (row0 < e.M && lane < TBN / 4)
+      *reinterpret_cast<float4*>(e.colsum + static_cast<long long>(row0 / kSumRows) * e.N + n0 +
+                                 c) = sum;
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+struct MapKey {
+  const void* plane;
+  int rows, cols, box_rows;
+  bool operator==(const MapKey& o) const {
+    return plane == o.plane && rows == o.rows && cols == o.cols && box_rows == o.box_rows;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    return std::hash<const void*>()(k.plane) ^ (static_cast<size_t>(k.rows) << 20) ^
+           (static_cast<size_t>(k.cols) << 40) ^ static_cast<size_t>(k.box_rows);
+  }
+};
+
+// The map of a row-major bf16 plane (rows x cols) in boxes of 64 columns x box_rows rows, in the
+// 128-byte swizzle; what lies outside the plane reads as zeros. A map is a function of these
+// four values alone, so maps are kept by them: the caching allocator hands a training step the
+// same addresses step after step, and an encode costs the host more than a launch.
+cudaError_t plane_map(CUtensorMap* map, const void* plane, int rows, int cols, int box_rows) {
+  static std::mutex mutex;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
+  const MapKey key = {plane, rows, cols, box_rows};
+  {
+    std::lock_guard<std::mutex> lock(mutex);
+    const auto hit = maps.find(key);
+    if (hit != maps.end()) {
+      *map = hit->second;
+      return cudaSuccess;
+    }
+  }
+  const EncodeTiled fn = encoder();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(plane), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(mutex);
+  if (maps.size() >= 4096) maps.clear();  // bounds the cache across many shapes and addresses
+  maps.emplace(key, *map);
+  return cudaSuccess;
+}
+
+int sm_count(int device) {
+  static int counts[64] = {};
+  if (device < 0 || device >= 64) return 132;
+  if (!counts[device]) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    counts[device] = n > 0 ? n : 132;
+  }
+  return counts[device];
+}
+
+// A product's planes: A's NA term planes and B's plane, each row-major (rows x cols). A K-
+// contiguous operand's plane is (M or N) x K, an M- or N-contiguous one's K x (M or N).
+struct Planes {
+  const void* a[2];
+  int a_rows, a_cols;
+  const void* b;
+  int b_rows, b_cols;
+};
+
+template <int WG, int TBN, int NA, bool A_MN, bool B_MN, int EPI>
+cudaError_t launch_wgmma(const Planes& p, const Epi16& e, int device, cudaStream_t stream) {
+  constexpr int kStageBytes = NA * WG * kAtomBytes + TBN * 128;
+  constexpr int kStages = ring_stages(kStageBytes);
+  constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+  auto kernel = wgmma_gemm<WG, TBN, NA, A_MN, B_MN, EPI>;
+  static bool sized[64] = {};
+  cudaError_t err = cudaSuccess;
+  if (device < 0 || device >= 64 || !sized[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    if (device >= 0 && device < 64) sized[device] = true;
+  }
+  Maps maps = {};
+  for (int t = 0; t < NA && err == cudaSuccess; ++t)
+    err = plane_map(&maps.a[t], p.a[t], p.a_rows, p.a_cols, A_MN ? 64 : 64 * WG);
+  if (err == cudaSuccess) err = plane_map(&maps.b, p.b, p.b_rows, p.b_cols, B_MN ? 64 : TBN);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(e.N / TBN, (e.M + 64 * WG - 1) / (64 * WG));
+  kernel<<<grid, 128 * WG + 32, kSmem, stream>>>(maps, e);
+  return cudaGetLastError();
+}
+
+// Picks the tile: 128 x 128 (two consumer warpgroups) where that still gives every SM a block,
+// else 64 x 64 (one).
+template <int NA, bool A_MN, bool B_MN, int EPI>
+cudaError_t run_wgmma(const Planes& p, const Epi16& e, int device, cudaStream_t stream) {
+  const bool large = e.N % 128 == 0 && ((e.M + 127) / 128) * (e.N / 128) >= sm_count(device);
+  return large ? launch_wgmma<2, 128, NA, A_MN, B_MN, EPI>(p, e, device, stream)
+               : launch_wgmma<1, 64, NA, A_MN, B_MN, EPI>(p, e, device, stream);
+}
+
+cudaError_t split(const void* v, const void* mask, void* hi, void* lo, void* colsum, int B, int H,
+                  cudaStream_t stream) {
+  const dim3 grid((H / 4 + kSplitThreads - 1) / kSplitThreads, (B + kSumRows - 1) / kSumRows);
+  split_kernel<<<grid, kSplitThreads, 0, stream>>>(
+      static_cast<const float*>(v), static_cast<const float*>(mask),
+      static_cast<__nv_bfloat16*>(hi), static_cast<__nv_bfloat16*>(lo),
+      static_cast<float*>(colsum), B, H);
   return cudaGetLastError();
 }
 
@@ -304,12 +907,12 @@ bool bad_shape(int B, int H) { return B < 1 || H < BN || H % BN; }
 
 extern "C" {
 
-// Forward of the residual block for x (B, H): writes a1, h, a2 (saved for the backward) and y,
-// all f32 (B, H). `f32` selects the f32 policy, else bf16. Launches on `stream` and returns the
-// cudaError_t of the launches (0 = ok); does not synchronise.
-int res_block_forward_launch(const void* x, const void* w1, const void* b1, const void* w2,
-                             const void* b2, void* a1, void* h, void* a2, void* y, int B, int H,
-                             int f32, int device, void* stream) {
+// The f32 policy's forward for x (B, H): writes a1, h, a2 (saved for the backward) and y, all
+// f32 (B, H). Launches on `stream` and returns the cudaError_t of the launches (0 = ok); does
+// not synchronise.
+int res_block_forward_f32(const void* x, const void* w1, const void* b1, const void* w2,
+                          const void* b2, void* a1, void* h, void* a2, void* y, int B, int H,
+                          int device, void* stream) {
   if (bad_shape(B, H)) return (int)cudaErrorInvalidValue;
   Gemm l1 = {};
   l1.a = static_cast<const float*>(x);
@@ -329,30 +932,24 @@ int res_block_forward_launch(const void* x, const void* w1, const void* b1, cons
   l2.aux = static_cast<const float*>(x);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&]() {
-    cudaError_t e;
-    if (f32) {
-      e = launch<true, true, 3, 3, kFwd1>(l1, s);
-      if (e == cudaSuccess) e = launch<true, true, 3, 3, kFwd2>(l2, s);
-    } else {
-      e = launch<true, true, 1, 1, kFwd1>(l1, s);
-      if (e == cudaSuccess) e = launch<true, true, 1, 1, kFwd2>(l2, s);
-    }
+    cudaError_t e = launch<true, true, 3, 3, kFwd1>(l1, s);
+    if (e == cudaSuccess) e = launch<true, true, 3, 3, kFwd2>(l2, s);
     return e;
   });
 }
 
-// Backward of the residual block: from dy and the saved x, W1, W2, a1, h, a2 (all f32) writes
-// dx (B, H), dW1, dW2 (H, H, torch layout), db1, db2 (H), using g1 (B, H) as scratch. Launches
-// on `stream` and returns the cudaError_t of the launches (0 = ok); does not synchronise.
-int res_block_backward_launch(const void* dy, const void* x, const void* w1, const void* w2,
-                              const void* a1, const void* h, const void* a2, void* g1, void* dx,
-                              void* dw1, void* db1, void* dw2, void* db2, int B, int H, int f32,
-                              int device, void* stream) {
+// The f32 policy's backward: from dy and the saved x, W1, W2, a1, h, a2 (all f32) writes dx
+// (B, H), dW1, dW2 (H, H, torch layout), db1, db2 (H), using g1 (B, H) as scratch. Launches on
+// `stream` and returns the cudaError_t of the launches (0 = ok); does not synchronise.
+int res_block_backward_f32(const void* dy, const void* x, const void* w1, const void* w2,
+                           const void* a1, const void* h, const void* a2, void* g1, void* dx,
+                           void* dw1, void* db1, void* dw2, void* db2, int B, int H, int device,
+                           void* stream) {
   if (bad_shape(B, H)) return (int)cudaErrorInvalidValue;
   const float* fdy = static_cast<const float*>(dy);
   const float* fa2 = static_cast<const float*>(a2);
   float* fg1 = static_cast<float*>(g1);
-  // g1 = round(g2 W2) * lrelu'(a1): A = g2 = dy * lrelu'(a2) (B x H), B(n, k) = W2[k, n]
+  // g1 = g2 W2 * lrelu'(a1): A = g2 = dy * lrelu'(a2) (B x H), B(n, k) = W2[k, n]
   Gemm gdh = {};
   gdh.a = fdy;
   gdh.a_mask = fa2;
@@ -362,15 +959,14 @@ int res_block_backward_launch(const void* dy, const void* x, const void* w1, con
   gdh.N = gdh.K = H;
   gdh.out0 = fg1;
   gdh.aux = static_cast<const float*>(a1);
-  gdh.round_out = f32 ? 0 : 1;
-  // dx = dy + round(g1 W1): A = g1, B(n, k) = W1[k, n]
+  // dx = dy + g1 W1: A = g1, B(n, k) = W1[k, n]
   Gemm gdx = gdh;
   gdx.a = fg1;
   gdx.a_mask = nullptr;
   gdx.b = static_cast<const float*>(w1);
   gdx.out0 = static_cast<float*>(dx);
   gdx.aux = fdy;
-  // dW2[o, i] = round(sum_b g2[b, o] h[b, i]): A(o, b) = g2[b, o], B(i, b) = h[b, i], K = B
+  // dW2[o, i] = sum_b g2[b, o] h[b, i]: A(o, b) = g2[b, o], B(i, b) = h[b, i], K = B
   Gemm gdw2 = {};
   gdw2.a = fdy;
   gdw2.a_mask = fa2;
@@ -379,8 +975,7 @@ int res_block_backward_launch(const void* dy, const void* x, const void* w1, con
   gdw2.M = gdw2.N = H;
   gdw2.K = B;
   gdw2.out0 = static_cast<float*>(dw2);
-  gdw2.round_out = gdh.round_out;
-  // dW1[o, i] = round(sum_b g1[b, o] x[b, i])
+  // dW1[o, i] = sum_b g1[b, o] x[b, i]
   Gemm gdw1 = gdw2;
   gdw1.a = fg1;
   gdw1.a_mask = nullptr;
@@ -388,23 +983,101 @@ int res_block_backward_launch(const void* dy, const void* x, const void* w1, con
   gdw1.out0 = static_cast<float*>(dw1);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&]() {
-    cudaError_t e;
-    if (f32) {
-      e = launch<true, false, 3, 3, kDh>(gdh, s);
-      if (e == cudaSuccess) e = launch<false, false, 3, 3, kDw>(gdw2, s);
-      if (e == cudaSuccess) e = launch<true, false, 3, 3, kDx>(gdx, s);
-      if (e == cudaSuccess) e = launch<false, false, 3, 3, kDw>(gdw1, s);
-    } else {
-      e = launch<true, false, 2, 1, kDh>(gdh, s);
-      if (e == cudaSuccess) e = launch<false, false, 2, 1, kDw>(gdw2, s);
-      if (e == cudaSuccess) e = launch<true, false, 2, 1, kDx>(gdx, s);
-      if (e == cudaSuccess) e = launch<false, false, 2, 1, kDw>(gdw1, s);
-    }
-    if (e == cudaSuccess) {
-      bias_grads_kernel<<<2 * H / 32, kThreads, 0, s>>>(fg1, fdy, fa2, static_cast<float*>(db1),
-                                                        static_cast<float*>(db2), B, H);
-      e = cudaGetLastError();
-    }
+    cudaError_t e = launch<true, false, 3, 3, kDh>(gdh, s);
+    if (e == cudaSuccess) e = launch<false, false, 3, 3, kDw>(gdw2, s);
+    if (e == cudaSuccess) e = launch<true, false, 3, 3, kDx>(gdx, s);
+    if (e == cudaSuccess) e = launch<false, false, 3, 3, kDw>(gdw1, s);
+    if (e == cudaSuccess) e = bias_grads(fg1, fdy, fa2, db1, db2, B, H, s);
+    return e;
+  });
+}
+
+// Splits v (B x H f32), times lrelu'(mask) if mask is not null, into the bf16 planes hi and, if
+// lo is not null, lo. One launch on `stream`.
+int res_block_split(const void* v, const void* mask, void* hi, void* lo, int B, int H, int device,
+                    void* stream) {
+  if (bad_shape(B, H)) return (int)cudaErrorInvalidValue;
+  return on_device(device, [&]() {
+    return split(v, mask, hi, lo, nullptr, B, H, static_cast<cudaStream_t>(stream));
+  });
+}
+
+// The bf16 policy's forward for x (B, H), given the bf16 planes of W1 and W2: writes the x
+// plane, a1, the h plane, a2 (saved for the backward) and y. Three launches on `stream`.
+int res_block_forward_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                           const void* b2, void* xp, void* a1, void* hp, void* a2, void* y, int B,
+                           int H, int device, void* stream) {
+  if (bad_shape(B, H)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Epi16 l1 = {};
+  l1.out0 = static_cast<float*>(a1);
+  l1.plane0 = static_cast<__nv_bfloat16*>(hp);
+  l1.bias = static_cast<const float*>(b1);
+  l1.M = B;
+  l1.N = l1.K = H;
+  Epi16 l2 = l1;
+  l2.out0 = static_cast<float*>(a2);
+  l2.out1 = static_cast<float*>(y);
+  l2.plane0 = nullptr;
+  l2.bias = static_cast<const float*>(b2);
+  l2.aux = static_cast<const float*>(x);
+  const Planes p1 = {{xp, nullptr}, B, H, w1, H, H};  // A = x (B x H), B(n, k) = W1[n, k]
+  const Planes p2 = {{hp, nullptr}, B, H, w2, H, H};
+  return on_device(device, [&]() {
+    cudaError_t e = split(x, nullptr, xp, nullptr, nullptr, B, H, s);
+    if (e == cudaSuccess) e = run_wgmma<1, false, false, kFwd1>(p1, l1, device, s);
+    if (e == cudaSuccess) e = run_wgmma<1, false, false, kFwd2>(p2, l2, device, s);
+    return e;
+  });
+}
+
+// The bf16 policy's backward: from dy (f32), the saved x and h planes, a1 and a2 (f32) and the
+// planes of W1 and W2, writes dx (B, H), dW1, dW2 (H, H, torch layout), db1, db2 (H), using as
+// scratch four (B, H) bf16 planes (g2's hi and lo, g1's hi and lo) and the column sums of each
+// 16 rows of g1 and of g2 (two f32 ceil(B / 16) x H). Six launches on `stream`.
+int res_block_backward_bf16(const void* dy, const void* xp, const void* w1, const void* w2,
+                            const void* a1, const void* hp, const void* a2, void* g2hi,
+                            void* g2lo, void* g1hi, void* g1lo, void* sums1, void* sums2, void* dx,
+                            void* dw1, void* db1, void* dw2, void* db2, int B, int H, int device,
+                            void* stream) {
+  if (bad_shape(B, H)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // g1 = round(g2 W2) * lrelu'(a1): A = g2 (B x H), B(n, k) = W2[k, n] (N-contiguous); its
+  // planes, and its column sums for db1
+  Epi16 edh = {};
+  edh.colsum = static_cast<float*>(sums1);
+  edh.plane0 = static_cast<__nv_bfloat16*>(g1hi);
+  edh.plane1 = static_cast<__nv_bfloat16*>(g1lo);
+  edh.aux = static_cast<const float*>(a1);
+  edh.M = B;
+  edh.N = edh.K = H;
+  const Planes pdh = {{g2hi, g2lo}, B, H, w2, H, H};
+  // dx = dy + round(g1 W1): B(n, k) = W1[k, n]
+  Epi16 edx = {};
+  edx.out0 = static_cast<float*>(dx);
+  edx.aux = static_cast<const float*>(dy);
+  edx.M = B;
+  edx.N = edx.K = H;
+  const Planes pdx = {{g1hi, g1lo}, B, H, w1, H, H};
+  // dW2[o, i] = round(sum_b g2[b, o] h[b, i]): A(o, b) = g2[b, o] (M-contiguous), B(i, b) =
+  // h[b, i] (N-contiguous), K = B
+  Epi16 edw2 = {};
+  edw2.out0 = static_cast<float*>(dw2);
+  edw2.M = edw2.N = H;
+  edw2.K = B;
+  const Planes pdw2 = {{g2hi, g2lo}, B, H, hp, B, H};
+  // dW1[o, i] = round(sum_b g1[b, o] x[b, i])
+  Epi16 edw1 = edw2;
+  edw1.out0 = static_cast<float*>(dw1);
+  const Planes pdw1 = {{g1hi, g1lo}, B, H, xp, B, H};
+  return on_device(device, [&]() {
+    cudaError_t e = split(dy, a2, g2hi, g2lo, sums2, B, H, s);
+    if (e == cudaSuccess) e = run_wgmma<2, false, true, kDh>(pdh, edh, device, s);
+    if (e == cudaSuccess) e = run_wgmma<2, true, true, kDw>(pdw2, edw2, device, s);
+    if (e == cudaSuccess) e = run_wgmma<2, false, true, kDx>(pdx, edx, device, s);
+    if (e == cudaSuccess) e = run_wgmma<2, true, true, kDw>(pdw1, edw1, device, s);
+    if (e == cudaSuccess)
+      e = bias_grads(sums1, sums2, nullptr, db1, db2, (B + kSumRows - 1) / kSumRows, H, s);
     return e;
   });
 }

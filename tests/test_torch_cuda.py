@@ -117,17 +117,66 @@ def test_res_block_kernels_match_plain_version(cuda, policy):
     for batch in (1, 37, 512):
         x, w1, b1, w2, b2, dy = _k1_inputs(batch, 1024, g, cuda)
         before = (K1.res_block_forward.launches, K1.res_block_backward.launches)
-        fwd = K1.res_block_forward(x, w1, b1, w2, b2, policy)
+        y, a1, h, a2, x_saved = K1.res_block_forward(x, w1, b1, w2, b2, policy)
         want = K1.res_block_forward_reference(x, w1, b1, w2, b2, policy)
-        for a, b in zip(fwd, want):
+        saved = K1.kernel_saved(x, *want[1:], policy)
+        for a, b in zip((y, a1, a2), (want[0], want[1], want[3])):
             torch.testing.assert_close(a, b, **K1_TOL)
-        got = K1.res_block_backward(dy, x, w1, w2, *want[1:], policy)
+        assert torch.equal(x_saved, saved[0])
+        if policy is BF16:  # h's bf16 plane: a rounded output
+            _k1_grad_close("dx", h.float(), saved[2].float(), policy)
+        else:
+            torch.testing.assert_close(h, want[2], **K1_TOL)
+        got = K1.res_block_backward(dy, saved[0], w1, w2, *saved[1:], policy)
         ref = K1.res_block_backward_reference(dy, x, w1, w2, *want[1:], policy)
         torch.cuda.synchronize()
         assert (K1.res_block_forward.launches, K1.res_block_backward.launches) == (
             before[0] + 1, before[1] + 1)
         for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, ref):
             _k1_grad_close(name, a, b, policy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,launches", [(BF16, (3, 6)), (F32, (2, 5))], ids=["bf16", "f32"])
+def test_res_block_kernel_launches_per_call(cuda, policy, launches):
+    g = torch.Generator().manual_seed(7)
+    x, w1, b1, w2, b2, dy = _k1_inputs(64, 256, g, cuda)
+    before = (K1.res_block_forward.kernel_launches, K1.res_block_backward.kernel_launches)
+    y, a1, h, a2, x_saved = K1.res_block_forward(x, w1, b1, w2, b2, policy)
+    K1.res_block_backward(dy, x_saved, w1, w2, a1, h, a2, policy)
+    assert (K1.res_block_forward.kernel_launches - before[0],
+            K1.res_block_backward.kernel_launches - before[1]) == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 37, 512, 4096])
+def test_split_kernel_matches_plain_split(cuda, batch):
+    """Bitwise: both round to nearest even."""
+    g = torch.Generator().manual_seed(batch)
+    dy, a2 = (torch.randn(batch, 1024, generator=g).to(cuda) for _ in "da")
+    for args in ((dy, 1), (dy, 2, a2)):
+        before = K1.split_planes.launches
+        got = K1.split_planes(*args)
+        want = K1.split_reference(*(t.cpu() if torch.is_tensor(t) else t for t in args))
+        assert K1.split_planes.launches == before + 1
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_weight_plane_cache_on_the_card(cuda):
+    g = torch.Generator().manual_seed(8)
+    block = Lifter(11, 128, generator=g).to(cuda).res_common
+    w = block.l1.weight
+    before = K1.weight_plane.casts
+    x = torch.randn(16, 128, generator=g).to(cuda)
+    for _ in range(2):
+        block(x, BF16)
+    assert K1.weight_plane.casts == before + 2  # W1 and W2, once
+    plane = K1.weight_plane(w)
+    with torch.no_grad():
+        w.add_(1.0)
+    fresh = K1.weight_plane(w)
+    assert fresh is not plane and torch.equal(fresh, w.detach().to(torch.bfloat16))
 
 
 @pytest.mark.cuda
@@ -153,7 +202,8 @@ def test_res_block_kernels_are_deterministic(cuda, policy):
     first = K1.res_block_forward(x, w1, b1, w2, b2, policy)
     second = K1.res_block_forward(x, w1, b1, w2, b2, policy)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
-    grads = [K1.res_block_backward(dy, x, w1, w2, *first[1:], policy) for _ in range(2)]
+    y, a1, h, a2, x_saved = first
+    grads = [K1.res_block_backward(dy, x_saved, w1, w2, a1, h, a2, policy) for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 

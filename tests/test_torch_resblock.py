@@ -179,3 +179,106 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(shape, message):
     if x.dim() == 2:
         with pytest.raises(ValueError, match=message):
             K1.res_block_backward(x, x, w, w, x, x, x, tnn.BF16)
+
+
+def _linear_weights(seed):
+    block = ResBlock(D, generator=torch.Generator().manual_seed(seed))
+    return block, block.l1.weight
+
+
+def test_weight_plane_is_cast_once_per_weight_version():
+    block, w = _linear_weights(2)
+    before = K1.weight_plane.casts
+    plane = K1.weight_plane(w)
+    assert plane.dtype == torch.bfloat16 and torch.equal(plane, w.detach().to(torch.bfloat16))
+    assert K1.weight_plane(w) is plane
+    assert K1.weight_plane.casts == before + 1
+
+
+@pytest.mark.parametrize("change", ["adam_step", "load_state_dict", "copy_"])
+def test_weight_plane_is_cast_again_after_the_weight_changes(change):
+    from links_tpu_torch.config import OptimConfig
+    from links_tpu_torch.train.optim import Adam
+
+    block, w = _linear_weights(3)
+    plane = K1.weight_plane(w)
+    if change == "adam_step":
+        Adam(block.parameters(), OptimConfig(), steps_per_epoch=1).step(
+            [torch.ones_like(p) for p in block.parameters()])
+    elif change == "load_state_dict":
+        other, _ = _linear_weights(4)
+        block.load_state_dict(other.state_dict())
+    else:
+        with torch.no_grad():
+            w.copy_(torch.randn(w.shape, generator=torch.Generator().manual_seed(5)))
+    before = K1.weight_plane.casts
+    fresh = K1.weight_plane(w)
+    assert fresh is not plane and not torch.equal(fresh, plane)
+    assert torch.equal(fresh, w.detach().to(torch.bfloat16))
+    assert K1.weight_plane.casts == before + 1
+    assert K1.weight_plane(w) is fresh
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 3e4])
+def test_two_term_split_holds_16_significant_bits(scale):
+    v = torch.from_numpy(np.random.default_rng(6).normal(size=(37, D)).astype(np.float32)) * scale
+    hi, lo = K1.split_reference(v, 2)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, v.bfloat16())
+    err = (hi.double() + lo.double() - v.double()).abs()
+    assert bool((err <= 2.0 ** -16 * v.double().abs()).all())
+    # one term holds 8 bits only
+    assert float(((hi.double() - v.double()).abs() / v.double().abs()).max()) > 2.0 ** -12
+
+
+def test_split_masks_by_the_lrelu_derivative():
+    rng = np.random.default_rng(7)
+    dy, a2 = (torch.from_numpy(rng.normal(size=(9, D)).astype(np.float32)) for _ in "da")
+    hi, lo = K1.split_planes(dy, 2, mask=a2)  # CPU tensors: the plain version
+    g2 = dy * K1._dlrelu(a2)
+    assert torch.equal(hi, g2.bfloat16()) and torch.equal(lo, (g2 - hi.float()).bfloat16())
+    (x_plane,) = K1.split_planes(dy, 1)
+    assert torch.equal(x_plane, dy.bfloat16())
+
+
+def _pair_sum(a_planes, b_plane):
+    """The sum over the term pairs (t, 0) of A_t @ B in f32: what the bf16
+    kernels' mainloop computes from A's term planes and B's one plane."""
+    return sum(a.float() @ b_plane.float() for a in a_planes)
+
+
+@pytest.mark.parametrize("product", ["dh", "dx"])
+def test_pair_list_sum_is_the_backward_product(product):
+    """Sum over the pairs (0, 0), (1, 0) of g's hi and lo planes times W's one
+    plane: res_block_backward_reference's g @ bf16(W), up to the 2**-17 of
+    each |g| the lo plane drops and f32 summation order, both bounded by a
+    share of |g| @ |bf16(W)|."""
+    p = jax.tree.map(np.asarray, init_res_block(jax.random.PRNGKey(8), D))
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(70, D)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(70, D)).astype(np.float32))
+    x_t, w1, b1, w2, b2 = (a.detach() for a in _port_args(x.numpy(), p["l1"]["w"], p["l1"]["b"],
+                                                           p["l2"]["w"], p["l2"]["b"]))
+    _, a1, _, a2 = K1.res_block_forward_reference(x_t, w1, b1, w2, b2, tnn.BF16)
+    g2 = dy * K1._dlrelu(a2)
+    g1 = (g2 @ w2.bfloat16().float()).bfloat16().float() * K1._dlrelu(a1)
+    g, w = (g2, w2) if product == "dh" else (g1, w1)
+    want = g @ w.bfloat16().float()
+    bound = 2.0 ** -15 * (g.abs() @ w.bfloat16().float().abs())
+    got = _pair_sum(K1.split_reference(g, 2), K1.weight_plane(w))
+    assert bool(((got - want).abs() <= bound).all())
+    # g2 needs its lo plane; g1 = bf16(dh) * lrelu'(a1) needs it only where a1 < 0
+    one_term = _pair_sum(K1.split_reference(g, 1), K1.weight_plane(w))
+    assert bool(((one_term - want).abs() > bound).any()) == (product == "dh")
+    # rounded to bf16 as the backward rounds it: rounding flips only
+    flips = (got.bfloat16().float() != want.bfloat16().float()).float().mean()
+    assert float(flips) < 0.01
+
+
+def test_weight_plane_of_an_inference_tensor_is_cast_once():
+    with torch.inference_mode():
+        w = torch.randn(D, D, generator=torch.Generator().manual_seed(9))
+        before = K1.weight_plane.casts
+        plane = K1.weight_plane(w)
+        assert K1.weight_plane(w) is plane and K1.weight_plane.casts == before + 1
+    assert torch.equal(plane, w.to(torch.bfloat16))
