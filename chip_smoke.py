@@ -7,10 +7,12 @@ Phases, each fatal on failure:
      (nvcc, sm_90a, one process per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card, at the
      full model width (side lifters at hidden 1024, weights from a seeded
-     torch.Generator): the fused serving kernel (K2) at the serving batches,
-     the residual-block kernels (K1 forward and backward) at the training,
-     serving and validation batches under both dtype policies, bitwise
-     repeatable, with K1's split kernel (bitwise) and its weight-plane cache;
+     torch.Generator): the fused serving kernel (K2) at the serving batches
+     and at each batch where its tile plan changes shape, with one batch on
+     each side of it, the residual-block kernels (K1 forward and backward)
+     at the training, serving and validation batches under both dtype
+     policies, all bitwise repeatable, with K1's split kernel (bitwise) and
+     its weight-plane cache;
   3. one stage-3a training step on the card against the same step on the
      CPU (full-width lifters and 8-block flows at hidden 1024, batch 64, the
      same draws), counting the residual-block launches of the step;
@@ -18,13 +20,14 @@ Phases, each fatal on failure:
      corpus: ``links_tpu_torch.cli.lift`` (--fused, --policy bf16, f32), then
      ``links_tpu_torch.cli.train_left_right_lifter`` for one epoch and
      ``lift`` (--fused, --policy bf16) with the lifters it wrote;
-  5. time the training step at batch 256 (first: a torch.profiler session
-     often leaves the process slower), then each kernel, its plain version, a
-     library yardstick (the same function as torch calls replayed from a
-     CUDA graph) and its bound. K1 is timed on the device from a CUDA graph
-     of its wrapper's calls, as the yardstick is, and eagerly beside it
-     (the host's enqueue then sets the pace), with each of its kernels'
-     device time from torch.profiler.
+  5. time the training step at batch 256 and then K2, both before any
+     torch.profiler session (one often leaves the process slower); then the
+     step's profile, and each kernel, its plain version, a library
+     yardstick (the same function as torch calls replayed from a CUDA graph)
+     and its bound. Kernels are timed on the device from a CUDA graph of
+     their wrapper's calls, as the yardstick is, and eagerly beside it (the
+     host's enqueue then sets the pace), with each CUDA kernel's device time
+     from torch.profiler (K2: one kernel per call).
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -111,7 +114,6 @@ STEP_RTOL, STEP_ATOL, STEP_GRAD_REL = 1e-3, 1e-4, 2e-2
 K1_FWD_PER_STEP = 2 * 2 * 7
 K1_BWD_PER_STEP = K1_FWD_PER_STEP - 2 * 3
 K1_CASTS_PER_STEP = 2 * 7 * 2
-KERNEL_BATCHES = (1, 37, 256, 512)
 TIMED_BATCHES = (1, 256, 512)
 MAIN_BATCH = 256          # --batch-size of the main paths
 TEST_POSES = 2048         # synthetic poses per test subject (S9, S11)
@@ -187,12 +189,12 @@ def _bound_ms(prep: dict, batch: int):
     return _bound(nbytes, flops)
 
 
-def _library_forward(prep: dict, left, right):
+def _library_forward(prep, left, right):
     """The same 16-layer two-side forward as batched torch matmuls in bf16,
     captured in a CUDA graph: the yardstick for K2 (never used by the port).
     Returns (graph, outputs)."""
     bf = {k: v.bfloat16() for k, v in prep.items()}
-    w_chain = bf["w_chain"]
+    w_chain = bf["w_chain"].mT.contiguous()  # prep keeps torch's (out, in)
     x = torch.stack([left, right]).bfloat16()
     w_down = bf["w_down"].mT.contiguous()
     w_ang = bf["w_ang"].mT.contiguous()
@@ -215,6 +217,15 @@ def _library_forward(prep: dict, left, right):
     return _graphed(fwd)
 
 
+def _k2_batches() -> list[int]:
+    """1, 37, 256 and 512, and each batch where K2's tile plan changes shape
+    on this card, with one batch on each side of it."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shape = [K2.plan(b, HIDDEN, sms)[:2] for b in range(1, K2.MAX_BATCH + 1)]
+    edges = [b for b in range(2, K2.MAX_BATCH + 1) if shape[b - 1] != shape[b - 2]]
+    return sorted({1, 37, 256, 512} | {b + d for b in edges for d in (-1, 0, 1)})
+
+
 def phase_build():
     t0 = time.perf_counter()
     _build.build(["fused_infer", "resblock"])
@@ -223,18 +234,29 @@ def phase_build():
     _log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, (secs, out) in _build.BUILD_LOG.items():
         _log(f"[build] {name}.cu: nvcc {secs:.2f} s\n{out.strip()}")
-    for batch in KERNEL_BATCHES:
-        p = K2.plan(0, batch, HIDDEN)
-        _log(f"[build] fused_sides_forward B={batch}: cooperative grid {p.grid} blocks, "
-             f"K split {p.splits}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for batch in _k2_batches():
+        p = K2.plan(batch, HIDDEN, sms)
+        smem = K2._lib().fused_sides_smem_bytes(p.rows, p.cols, p.a_rows, p.chunk, p.a_chunks,
+                                                p.w_chunks)
+        if smem != p.smem:
+            raise AssertionError(f"K2's plan at B={batch} gives {p.smem} bytes of shared memory, "
+                                 f"the kernel {smem}")
+        _log(f"[build] fused_sides_forward plan B={batch}: tiles {p.rows} x {p.cols}, grid "
+             f"{p.grid} blocks of {sms} SMs (2 sides x {p.row_tiles} x {p.col_tiles}), A box "
+             f"{p.a_rows} rows, ring slots of {p.chunk} K tiles: {p.a_chunks} for A, "
+             f"{p.w_chunks} for the weights; {p.smem} bytes of shared memory")
 
 
 def phase_kernel_vs_plain(prep) -> float:
+    """K2 against its plain version at every checked batch, bitwise
+    repeatable, its counters back at zero after each call."""
     worst = 0.0
     with torch.inference_mode():
-        for batch in KERNEL_BATCHES:
+        for batch in _k2_batches():
             left, right = _inputs(batch, seed=batch)
             got = K2.fused_sides_forward(prep, left, right)
+            again = K2.fused_sides_forward(prep, left, right)
             torch.cuda.synchronize()
             want = K2.fused_sides_forward_reference(prep, left, right)
             errs = []
@@ -246,9 +268,14 @@ def phase_kernel_vs_plain(prep) -> float:
                         f"fused_sides_forward disagrees with its plain version at "
                         f"B={batch} ({name}): max abs err {float(err.max()):.3e}")
                 errs.append(float(err.max()))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"fused_sides_forward is not repeatable at B={batch}")
+            if any(bool(c.any()) for c in prep._counters.values()):
+                raise AssertionError(f"fused_sides_forward left its counters nonzero at B={batch}")
             worst = max(worst, *errs)
             _log(f"[kernel] fused_sides_forward B={batch}: max abs err depth "
-                 f"{max(errs[:2]):.3e} angle {max(errs[2:]):.3e} (rtol=atol={TOL})")
+                 f"{max(errs[:2]):.3e} angle {max(errs[2:]):.3e} (rtol=atol={TOL}); two runs "
+                 f"bitwise equal; counters back at zero")
     return worst
 
 
@@ -531,23 +558,58 @@ def _smi() -> str:
 
 
 def phase_times(prep, smi):
+    """K2 per call at each timed batch, before any torch.profiler session: the
+    device time from a CUDA graph of the wrapper's call (as the library's),
+    the eager device time and the wrapper's host time per call, the plain
+    version, the library yardstick and the bound. The kernel's and the
+    library's times are the least of three timed runs each, taken in turns
+    (one run of a ~0.07 ms kernel can read a third above the others). The
+    graph time must beat the library's."""
     rows = {}
     with torch.inference_mode():
         for batch in TIMED_BATCHES:
             left, right = _inputs(batch, seed=1000 + batch)
-            graph, _ = _library_forward(prep, left, right)
-            row = {}
-            row["ms"], host_ms = _time_ms(lambda: K2.fused_sides_forward(prep, left, right))
+            lib_graph, _ = _library_forward(prep, left, right)
+
+            def call():
+                return K2.fused_sides_forward(prep, left, right)
+
+            graph = _graphed(call)[0]
+            runs = [(_time_ms(graph.replay), _time_ms(call), _time_ms(lib_graph.replay))
+                    for _ in range(3)]
+            row = {"ms": min(r[0][0] for r in runs), "eager_ms": min(r[1][0] for r in runs)}
+            host_ms = min(r[1][1] for r in runs)
             row["plain_ms"], _ = _time_ms(
                 lambda: K2.fused_sides_forward_reference(prep, left, right))
-            row["library_ms"], _ = _time_ms(graph.replay)
+            row["library_ms"] = min(r[2][0] for r in runs)
             row["bound_ms"], row["bound_by"] = _bound_ms(prep, batch)
             rows[batch] = row
-            _log(f"[time] fused_sides_forward B={batch}: kernel {row['ms']:.4f} ms "
-                 f"(wrapper's host time {host_ms:.4f} ms), plain {row['plain_ms']:.4f} ms, "
-                 f"library (CUDA graph) {row['library_ms']:.4f} ms, bound "
-                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}) on {smi}")
+            _log(f"[time] fused_sides_forward B={batch}: kernel {row['ms']:.4f} ms (CUDA graph, "
+                 f"least of {' / '.join(f'{r[0][0]:.4f}' for r in runs)}; eager "
+                 f"{row['eager_ms']:.4f} ms, wrapper's host time {host_ms:.4f} ms), plain "
+                 f"{row['plain_ms']:.4f} ms, library (CUDA graph) {row['library_ms']:.4f} ms, "
+                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) on {smi}")
+            if row["ms"] >= row["library_ms"]:
+                raise AssertionError(f"fused_sides_forward B={batch}: {row['ms']:.4f} ms from a "
+                                     f"CUDA graph, not below the library's "
+                                     f"{row['library_ms']:.4f} ms")
     return rows
+
+
+def phase_k2_kernels(prep, smi):
+    """One K2 call is one CUDA kernel (torch.profiler), at each timed batch."""
+    with torch.inference_mode():
+        for batch in TIMED_BATCHES:
+            left, right = _inputs(batch, seed=1000 + batch)
+            calls = 20
+            text, rows = _kernel_breakdown(lambda: K2.fused_sides_forward(prep, left, right),
+                                           calls)
+            # one kernel, at most once per call (the profiler may drop a launch's event)
+            if len(rows) != 1 or not (calls - 1) / calls <= rows[0][1] <= 1:
+                raise AssertionError(f"fused_sides_forward B={batch} ran {text}, not one kernel "
+                                     f"per call")
+            _log(f"[time] fused_sides_forward B={batch} by kernel (ms per launch): {text} on "
+                 f"{smi}")
 
 
 def _k1_library(x, w1, b1, w2, b2, dy, dtype):
@@ -584,10 +646,11 @@ def _k1_bounds(batch: int):
             _bound(2 * weights + 3 * act, 6 * product))
 
 
-def _kernel_breakdown(fn, calls: int = 20) -> str:
+def _kernel_breakdown(fn, calls: int = 20):
     """Device ms per launch of each CUDA kernel ``fn`` launches, and its
     launches per call as the profiler recorded them (torch.profiler; a
-    count below the launches per call means events were dropped)."""
+    count below the launches per call means events were dropped).
+    -> (text, [(ms, launches per call, name)])."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -597,7 +660,8 @@ def _kernel_breakdown(fn, calls: int = 20) -> str:
     rows = [(e.self_device_time_total / 1e3 / e.count, e.count / calls,
              e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0])
             for e in prof.key_averages() if e.self_device_time_total > 0]
-    return ", ".join(f"{name} {ms:.4f} (x{n:.2f})" for ms, n, name in sorted(rows, reverse=True))
+    rows = sorted(rows, reverse=True)
+    return ", ".join(f"{name} {ms:.4f} (x{n:.2f})" for ms, n, name in rows), rows
 
 
 def phase_k1_times(smi):
@@ -635,7 +699,7 @@ def phase_k1_times(smi):
             if batch == 512:
                 rows[which] = row
             _log(f"[time] res_block_{which} {pname} B={batch} by kernel (ms per launch): "
-                 f"{_kernel_breakdown(kernel)}")
+                 f"{_kernel_breakdown(kernel)[0]}")
             _log(f"[time] res_block_{which} {pname} B={batch}: kernel {row['ms']:.4f} ms "
                  f"(CUDA graph; eager {eager_ms:.4f} ms, wrapper's host time {host_ms:.4f} ms), "
                  f"plain {row['plain_ms']:.4f} ms, library ({pname} torch calls, CUDA graph) "
@@ -647,9 +711,9 @@ def phase_k1_times(smi):
 def phase_step_time(smi):
     """The training step at batch 256 (bf16 policy, bf16 Adam moments, the
     trainer's defaults), after warm-up: device ms (CUDA events) and host
-    ms per step, and a breakdown by part from the same functions. It runs
-    before any other phase opens torch.profiler or captures a CUDA graph,
-    so that it times the step as the trainer runs it."""
+    ms per step. It runs before any other phase opens torch.profiler or
+    captures a CUDA graph, so that it times the step as the trainer runs
+    it. -> (device ms, host ms, the step, what phase_step_profile needs)."""
     stacked, frozen = _full_width_models(seed=4)
     stacked, frozen = stacked.cuda(), LifterFrozen(*(f.cuda() for f in frozen))
     cfg = LifterTrainConfig(nll_cap=500.0, batch_size=MAIN_BATCH,
@@ -666,7 +730,16 @@ def phase_step_time(smi):
         return step(state, data, draws)
 
     step_ms, host_ms = _time_ms(one, iters=20, warmup=3)
-    # device busy share and launches per step: torch.profiler over a few steps
+    _log(f"[time] training step B={MAIN_BATCH}: device {step_ms:.4f} ms, host {host_ms:.4f} "
+         f"ms per step, {MAIN_BATCH / max(step_ms, host_ms) * 1e3:.1f} poses/s on {smi}")
+    return step_ms, host_ms, one, (stacked, frozen, state, cfg, data, g)
+
+
+def phase_step_profile(step, smi):
+    """The step's busy share and launches (torch.profiler over a few steps),
+    and a breakdown by part from the same functions, each between CUDA
+    events; after the timings that a profiler session would slow."""
+    step_ms, one, (stacked, frozen, state, cfg, data, g) = step
     n_prof = 5
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
@@ -676,7 +749,8 @@ def phase_step_time(smi):
     kernel_ms = sum(e.self_device_time_total for e in events if e.device_type.name == "CUDA")
     kernel_ms = kernel_ms / 1e3 / n_prof
     launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel",
-                                                         "cudaLaunchCooperativeKernel"))
+                                                         "cudaLaunchCooperativeKernel",
+                                                         "cudaLaunchKernelExC"))
     # where a step's device time goes: the same pieces, each between events
     draws = StepDraws(torch.randn(MAIN_BATCH, 34, generator=g, device="cuda"),
                       torch.rand(2 * MAIN_BATCH, 1, generator=g, device="cuda"),
@@ -699,12 +773,10 @@ def phase_step_time(smi):
         if rep >= 2:
             for i, k in enumerate(parts):
                 parts[k] += ev[i].elapsed_time(ev[i + 1]) / reps
-    _log(f"[time] training step B={MAIN_BATCH}: device {step_ms:.4f} ms, host {host_ms:.4f} "
-         f"ms per step, {MAIN_BATCH / max(step_ms, host_ms) * 1e3:.1f} poses/s; kernels busy "
-         f"{kernel_ms:.4f} ms per step ({kernel_ms / step_ms:.1%} of the step; profiled), "
+    _log(f"[time] training step B={MAIN_BATCH}: kernels busy {kernel_ms:.4f} ms per step "
+         f"({kernel_ms / step_ms:.1%} of the step's {step_ms:.4f} ms; profiled), "
          f"{launches / n_prof:.0f} kernel launches per step; parts between events (ms) "
          f"{', '.join(f'{k} {v:.4f}' for k, v in parts.items())} on {smi}")
-    return step_ms, host_ms
 
 
 def main() -> int:
@@ -728,9 +800,11 @@ def main() -> int:
     k2_launches, train = phase_main_path(stacked)
     smi = _smi()
     _log(smi)
-    phase_step_time(smi)
+    step_ms, _, one, step_state = phase_step_time(smi)
     k2_rows = phase_times(prep, smi)
+    phase_step_profile((step_ms, one, step_state), smi)
     k1_rows, cast_ms = phase_k1_times(smi)
+    phase_k2_kernels(prep, smi)
     k1_ms = (K1_FWD_PER_STEP * k1_rows["forward"]["ms"]
              + K1_BWD_PER_STEP * k1_rows["backward"]["ms"] + K1_CASTS_PER_STEP * cast_ms)
     _log(f"[time] K1 in a training step at B=512: {K1_FWD_PER_STEP} forward + "

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``_build/``
-(git-ignored), named by a hash of its source and flags so an edited source
-is rebuilt. Builds of several sources run in parallel, one ``nvcc`` each.
-Nothing is built at import time.
+(git-ignored), named by a hash of its source, the headers it includes and
+the flags, so that an edited source or header is rebuilt. Builds of several
+sources run in parallel, one ``nvcc`` each. Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,6 +23,7 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> (seconds, compiler output) of the builds this process ran
 BUILD_LOG: dict[str, tuple[float, str]] = {}
@@ -37,10 +39,24 @@ def _nvcc() -> str:
                        "built from source on a machine with the CUDA toolkit")
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes with
+    ``#include "..."``, directly or through another header, in the order
+    first reached."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for inc in _INCLUDE.findall(path.read_text()):
+            header = path.parent / inc
+            if header.exists() and header not in found:
+                found.append(header)
+    return found
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> None:

@@ -33,12 +33,21 @@ def _stacked(hidden, g, device):
                          Lifter(11, hidden, generator=g)).to(device)
 
 
+def _k2_batches(hidden, device):
+    """1, 37, 256 and 512, and each batch where the kernel's tile plan
+    changes shape with one batch on each side of it."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shape = [K2.plan(b, hidden, sms)[:2] for b in range(1, K2.MAX_BATCH + 1)]
+    edges = [b for b in range(2, K2.MAX_BATCH + 1) if shape[b - 1] != shape[b - 2]]
+    return sorted({1, 37, 256, 512} | {b + d for b in edges for d in (-1, 0, 1)})
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hidden", [128, 1024])
 def test_fused_sides_kernel_matches_plain_version(cuda, hidden):
     g = torch.Generator().manual_seed(0)
     prep = K2.prepare_fused_weights(_stacked(hidden, g, cuda))
-    for batch in (1, 37, 65, 512):
+    for batch in _k2_batches(hidden, cuda):
         x = (torch.randn(2, batch, 22, generator=g) * 0.1).to(cuda)
         before = K2.fused_sides_forward.launches
         with torch.no_grad():
@@ -52,16 +61,38 @@ def test_fused_sides_kernel_matches_plain_version(cuda, hidden):
 
 @pytest.mark.cuda
 def test_fused_sides_kernel_is_deterministic(cuda):
-    """The split-K partial sums are added in split order, not in the order
-    the blocks finish."""
+    """Every output tile is owned by one block, which sums its full K in a
+    fixed order: no split-K, no atomics on values."""
     g = torch.Generator().manual_seed(1)
     prep = K2.prepare_fused_weights(_stacked(1024, g, cuda))
-    x = (torch.randn(2, 16, 22, generator=g) * 0.1).to(cuda)
-    with torch.no_grad():
-        first = K2.fused_sides_forward(prep, x[0], x[1])
-        second = K2.fused_sides_forward(prep, x[0], x[1])
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
+    for batch in (16, 200, 400):  # one batch per tile shape
+        x = (torch.randn(2, batch, 22, generator=g) * 0.1).to(cuda)
+        with torch.no_grad():
+            first = K2.fused_sides_forward(prep, x[0], x[1])
+            second = K2.fused_sides_forward(prep, x[0], x[1])
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_sides_call_is_one_kernel_and_leaves_its_counters_zero(cuda, monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator().manual_seed(9)
+    prep = K2.prepare_fused_weights(_stacked(1024, g, cuda))
+    x = (torch.randn(2, 256, 22, generator=g) * 0.1).to(cuda)
+    K2.fused_sides_forward(prep, x[0], x[1])  # builds, allocates the counters
+    torch.cuda.synchronize()
+    made = []
+    monkeypatch.setattr(K2.FusedWeights, "__init__", lambda *a: made.append(1))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            K2.fused_sides_forward(prep, x[0], x[1])
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages() if e.self_device_time_total > 0}
+    assert len(kernels) == 1 and list(kernels.values()) == [3], kernels
+    assert not made  # the prepared weights are not checked again
+    assert prep._counters and all(not bool(c.any()) for c in prep._counters.values())
 
 
 @pytest.mark.cuda

@@ -82,12 +82,15 @@ def test_cpu_wrapper_takes_the_plain_version_and_counts_no_launch(rng, pair):
 def test_prepare_fused_weights_layout(pair):
     _, port = pair
     prep = K2.prepare_fused_weights(port)
-    for name, (dtype, shape) in K2._SHAPES.items():
+    for name, (dtype, shape) in K2.FusedWeights._SHAPES.items():
         assert prep[name].dtype == dtype and prep[name].is_contiguous()
         assert tuple(prep[name].shape) == shape(22, HID, 11)
-    # chain weights are (in, out): block res_pose2 (index 2), l2, right side
+    assert (prep.in_dim, prep.hidden, prep.n_out) == (22, HID, 11)
+    # chain weights are torch's (out, in), K-major for wgmma: block res_pose2
+    # (index 2), l2, right side; the upscale weight is (in, out)
     assert torch.equal(prep["w_chain"][1, 2, 1],
-                       port.right.res_pose2.l2.weight.detach().T.bfloat16())
+                       port.right.res_pose2.l2.weight.detach().bfloat16())
+    assert torch.equal(prep["w_up"][0], port.left.upscale.weight.detach().T.bfloat16())
 
 
 @pytest.mark.parametrize("batch", [513, 600])
