@@ -1,18 +1,25 @@
 """Shared CLI plumbing of the port: the data, checkpoint and training flags
-the serving lift and the stage-3a trainer need (the subset of
-links_tpu/cli/_common.py they use)."""
+the serving lift and the trainers of stages 1, 2, 3a and 3b need (the
+subset of links_tpu/cli/_common.py they use)."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import functools
+import json
+import time
 from pathlib import Path
 
 import torch
 
 from links_tpu_torch.core import geometry
 from links_tpu_torch.core.nn import full_f32_matmuls
+from links_tpu_torch.core.skeleton import (
+    BONE_RELATIONS_MEAN_H36M,
+    BONE_RELATIONS_MEAN_MPI_VNECT_INTERESTING,
+    get_bone_lengths_all,
+)
 from links_tpu_torch.data.datasets import (
     MPI_SUBJECTS,
     TEST_SUBJECTS,
@@ -22,10 +29,20 @@ from links_tpu_torch.data.datasets import (
 )
 from links_tpu_torch.data.synthetic import write_synthetic_pickle
 
-# Artifact names of the frozen flows (the names the JAX trainers' --save-pt writes)
+# Artifact names of the flows (<name>.pt), as the JAX trainers' --save-pt names them
 FULL_FLOW = "full_flow"
 FLOW_LEFT = "flow_left"
 FLOW_RIGHT = "flow_right"
+FLOW_LEGS = "flow_legs"
+FLOW_TORSO = "flow_torso"
+# Lifter artifacts: the (left, right) pair the 3a trainer writes (the
+# reference's names), the reference-layout pair, and the (legs, torso) pair
+LR_LIFTERS = ("left_side_lifter_final.pt", "right_side_lifter_final.pt")
+LR_LIFTERS_REFERENCE = ("left_lifter.pt", "right_lifter.pt")
+LEG_TORSO_LIFTERS = ("leg_lifter.pt", "torso_lifter.pt")
+# seed of the lifter trainers' unsupervised validation draws: fixed and
+# independent of --seed, so the criterion compares across epochs and seeds
+VAL_SEED = 20_000
 
 
 def _test_scale(value: str):
@@ -97,17 +114,27 @@ def add_lifter_flags(parser: argparse.ArgumentParser):
     parser.add_argument("-o", "--rot3d", type=float, default=1.0, help="3d reconstruction")
     parser.add_argument("-v", "--velocity", type=float, default=1.0, help="velocity")
     parser.add_argument("-l", "--likelihood", type=float, default=1.0, help="likelihood")
+    parser.add_argument("--bone-means", choices=["h36m", "mpi_vnect_interesting", "data"],
+                        default="h36m",
+                        help="bone-relation prior means: H36M's, those of MPI-INF-3DHP's "
+                             "'vnect interesting' cameras, or the train split's 3D ground "
+                             "truth's")
     return parser
 
 
 # Flags of the JAX trainers that later slices port: accepted, then refused.
-UNPORTED_TRAIN_FLAGS = ("resume", "packed_data", "distributed", "num_devices", "wandb",
-                        "save_every")
+# The lifter trainers also refuse --save-every, which in the JAX package
+# paces only their run checkpoints (not yet ported).
+UNPORTED_TRAIN_FLAGS = ("resume", "packed_data", "distributed", "num_devices", "wandb")
+UNPORTED_LIFTER_FLAGS = UNPORTED_TRAIN_FLAGS + ("save_every",)
 
 
-def add_train_flags(parser: argparse.ArgumentParser):
+def add_train_flags(parser: argparse.ArgumentParser, bf16_opt_state_default: bool = False,
+                    nll_cap_default: float | None = None):
     """The training flags of the JAX package's trainers that the port runs,
-    with the stage-3a trainer's defaults (bf16 Adam moments, NLL cap 500)."""
+    with a stage's defaults as the JAX package sets them: f32 Adam moments
+    and the config's NLL cap (none) for the flow trainers; the lifter
+    trainers pass bf16 moments and a cap of 500."""
     parser.add_argument("--train-subjects", default=None,
                         help="comma-separated train subject list override")
     parser.add_argument("--epochs", type=int, default=None,
@@ -115,11 +142,11 @@ def add_train_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--f32", action="store_true", help="disable bf16 matmuls (full f32)")
     parser.add_argument("--clip-grad", type=float, default=None,
                         help="clip the global gradient norm before Adam (default off)")
-    parser.add_argument("--nll-cap", type=float, default=500.0,
+    parser.add_argument("--nll-cap", type=float, default=nll_cap_default,
                         help="soft-cap the per-sample flow NLL (identity below the cap, "
                              "cap + log1p above); 0 disables")
     parser.add_argument("--bf16-opt-state", action=argparse.BooleanOptionalAction,
-                        default=True,
+                        default=bf16_opt_state_default,
                         help="store Adam moments in bfloat16 at rest (f32 update math)")
     parser.add_argument("--validate-every", type=int, default=1,
                         help="validate every N epochs (always on the final epoch)")
@@ -132,7 +159,9 @@ def add_train_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--distributed", action="store_true", help="(not yet ported)")
     parser.add_argument("--num-devices", type=int, default=None, help="(not yet ported)")
     parser.add_argument("--wandb", action="store_true", help="(not yet ported)")
-    parser.add_argument("--save-every", type=int, default=None, help="(not yet ported)")
+    parser.add_argument("--save-every", type=int, default=None,
+                        help="flow trainers: write the flows every N epochs (default 1; "
+                             "always the final epoch); lifter trainers: not yet ported")
     return parser
 
 
@@ -207,6 +236,12 @@ def load_test(args):
     return loader(path, test_s, normalize_func=norm)
 
 
+def load_train(args):
+    """The train split, normalized with ``normalize_head``."""
+    path, loader, train_s, _, _ = _split_spec(args)
+    return loader(path, train_s, normalize_func=geometry.normalize_head)
+
+
 def load_train_test(args):
     """(train split normalized with ``normalize_head``, test split)."""
     path, loader, train_s, test_s, norm = _split_spec(args)
@@ -221,16 +256,20 @@ def load_flow(args, name: str, device):
     path = Path(args.model_dir) / f"{name}.pt"
     if not path.exists():
         raise FileNotFoundError(
-            f"no flow weights at {path}: the port reads the FrEIA-layout .pt flows "
-            f"that the JAX flow trainers write with --save-pt "
-            f"({FULL_FLOW}.pt, {FLOW_LEFT}.pt, {FLOW_RIGHT}.pt)")
+            f"no flow weights at {path}: train them first with "
+            f"links_tpu_torch.cli.train_full_pose_norm_flow ({FULL_FLOW}.pt) and "
+            f"links_tpu_torch.cli.train_part_norm_flows ({FLOW_LEFT}.pt, {FLOW_RIGHT}.pt, "
+            f"{FLOW_LEGS}.pt, {FLOW_TORSO}.pt), or pass the FrEIA-layout .pt flows the JAX "
+            f"flow trainers write with --save-pt")
     return load_flow_pt(path, device)
 
 
 def load_stacked_lr(args, device):
-    """The (left, right) lifter pair as a ``StackedLifter`` on ``device``:
-    from ``--left-pt``/``--right-pt``, else ``{left,right}_lifter.pt`` in
-    ``--model-dir``."""
+    """The (left, right) lifter pair as a ``StackedLifter`` on ``device``, in
+    the JAX package's order: ``--left-pt``/``--right-pt``; else the pair
+    the stage-3a trainers write in ``--model-dir``
+    (``{left,right}_side_lifter_final.pt``); else the reference-layout pair
+    there (``{left,right}_lifter.pt``)."""
     from links_tpu_torch.ckpt.torch_io import load_lifter_pt
     from links_tpu_torch.models.lifters import StackedLifter
 
@@ -238,23 +277,26 @@ def load_stacked_lr(args, device):
     if bool(left_pt) != bool(right_pt):
         raise ValueError("--left-pt and --right-pt must be given together")
     if not left_pt:
-        left_pt = Path(args.model_dir) / "left_lifter.pt"
-        right_pt = Path(args.model_dir) / "right_lifter.pt"
-        if not (left_pt.exists() and right_pt.exists()):
+        pairs = [[Path(args.model_dir) / f for f in names]
+                 for names in (LR_LIFTERS, LR_LIFTERS_REFERENCE)]
+        found = [p for p in pairs if all(f.exists() for f in p)]
+        if not found:
             raise FileNotFoundError(
-                f"no left/right lifter weights: expected {left_pt} + {right_pt} "
-                f"(reference .pt pair; the JAX trainers write them with "
-                f"--save-pt) or pass --left-pt/--right-pt")
+                f"no left/right lifter weights: expected {' + '.join(map(str, pairs[0]))} "
+                f"(the stage-3a trainers write them) or {' + '.join(map(str, pairs[1]))} "
+                f"(a reference .pt pair); train stage 3a first or pass --left-pt/--right-pt")
+        left_pt, right_pt = found[0]
     return StackedLifter(load_lifter_pt(left_pt, device),
                          load_lifter_pt(right_pt, device))
 
 
 def load_leg_torso(args, device):
     """(legs, torso) ``Lifter``s on ``device`` from the ``leg_lifter.pt`` and
-    ``torso_lifter.pt`` that the JAX stage-3b trainer writes with --save-pt."""
+    ``torso_lifter.pt`` that the stage-3b trainers write (the JAX one with
+    --save-pt)."""
     from links_tpu_torch.ckpt.torch_io import load_lifter_pt
 
-    paths = [Path(args.model_dir) / f for f in ("leg_lifter.pt", "torso_lifter.pt")]
+    paths = [Path(args.model_dir) / f for f in LEG_TORSO_LIFTERS]
     missing = [str(p) for p in paths if not p.exists()]
     if missing:
         raise FileNotFoundError(f"no leg/torso lifter weights: expected {missing}")
@@ -270,3 +312,80 @@ def resolve_device(name: str) -> torch.device:
                              f"(pass --device cpu)")
         full_f32_matmuls()
     return device
+
+
+def bone_means_from_data(train_data) -> torch.Tensor:
+    """The mean relative bone lengths (16,) of the training set's 3D ground
+    truth, as the reference derived its prior constants from its datasets
+    (``--bone-means data``)."""
+    bl = get_bone_lengths_all(train_data.poses_3d)
+    return (bl / bl.mean(dim=1, keepdim=True)).mean(dim=0)
+
+
+def resolve_bone_means(args, train_data) -> torch.Tensor:
+    """The bone-relation prior means that ``--bone-means`` names (16,)."""
+    if args.bone_means == "data":
+        return bone_means_from_data(train_data)
+    means = {"h36m": BONE_RELATIONS_MEAN_H36M,
+             "mpi_vnect_interesting": BONE_RELATIONS_MEAN_MPI_VNECT_INTERESTING}
+    return torch.as_tensor(means[args.bone_means], dtype=torch.float32)
+
+
+@torch.no_grad()
+def validate_unsup(loss_fn, test_2d: torch.Tensor) -> dict[str, float]:
+    """A stage-3 objective on the test split (no 3D ground truth), on a fixed
+    rotation draw of seed ``VAL_SEED``; ``loss_fn(poses, u_azim, eps_elev)
+    -> (loss, aux)``. ``val_nll`` is its flow-likelihood term,
+    ``val_unsup_loss`` the whole weighted sum."""
+    n2 = test_2d.shape[0] // 2 * 2  # the pairwise term needs an even batch
+    g = torch.Generator(device=test_2d.device).manual_seed(VAL_SEED)
+    u_azim = torch.rand(n2, 1, generator=g, device=test_2d.device)
+    eps_elev = torch.randn(n2, 1, generator=g, device=test_2d.device)
+    loss, aux = loss_fn(test_2d[:n2], u_azim, eps_elev)
+    return dict(zip(("val_nll", "val_unsup_loss"), torch.stack([aux["likeli"], loss]).tolist()))
+
+
+def log_record(fh, record: dict, **extra):
+    """One JSON record per line (the JAX package's MetricLogger format)."""
+    fh.write(json.dumps(dict(record, _time=time.time(), **extra)) + "\n")
+    fh.flush()
+
+
+def run_training(args, cfg, step, state, data: torch.Tensor, generator: torch.Generator,
+                 log_name: str, config: dict, on_epoch, draw=None):
+    """The trainers' epoch loop: ``cfg.n_epochs`` epochs of ``step`` over
+    ``data`` (``train.loop.run_epoch``, with ``draw`` as there). After each
+    epoch ``on_epoch(epoch, rec)`` may add to the record and write artifacts,
+    and returns the text of the epoch's line after ``epoch N: ``; the record
+    goes to the JSONL log (``--log``, default ``<model-dir>/<log_name>.jsonl``,
+    after one ``_config`` record) and the line to stdout. -> (seconds spent
+    in the epochs' steps, the last epoch's record)."""
+    from links_tpu_torch.train.loop import run_epoch
+    from links_tpu_torch.train.steps import draw_step
+
+    log_path = Path(args.log) if args.log else Path(args.model_dir) / f"{log_name}.jsonl"
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    step_seconds, rec = 0.0, {}
+    with log_path.open("a") as log:
+        log_record(log, {"_config": config})
+        for epoch in range(cfg.n_epochs):
+            t0 = time.perf_counter()
+            rec = run_epoch(step, state, data, cfg.batch_size, generator, draw or draw_step)
+            step_seconds += time.perf_counter() - t0  # run_epoch ends with a device read
+            msg = on_epoch(epoch, rec)
+            rec["epoch"] = epoch
+            log_record(log, rec, _step=epoch)
+            print(f"epoch {epoch}: {msg}", flush=True)
+    return step_seconds, rec
+
+
+def print_summary(cfg, state, device, step_seconds: float, rec: dict):
+    """The trainers' one-line JSON summary: epochs, steps, device, the
+    seconds spent in the epoch loops, poses/s and the last epoch's record."""
+    poses = state.step * cfg.batch_size
+    print(json.dumps({
+        "epochs": cfg.n_epochs, "steps": state.step, "batch": cfg.batch_size,
+        "device": str(device), "seconds": round(step_seconds, 4),
+        "poses_per_sec": round(poses / step_seconds, 1) if step_seconds > 0 else None,
+        "last": {k: v for k, v in rec.items() if k != "epoch"},
+    }))

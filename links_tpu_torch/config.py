@@ -1,6 +1,6 @@
-"""Stage configurations of the port (counterpart of the optimizer and
+"""Stage configurations of the port (counterpart of the optimizer, flow and
 stage-3 configurations in links_tpu/config.py; same defaults). The CLIs
-override some defaults (cli/train_left_right_lifter.py). The JAX package's
+override some defaults (cli/_common.py:add_train_flags). The JAX package's
 ``use_elevation`` is not carried over: no entry point turns it off, and the
 port always draws the elevation from the predicted angles' statistics."""
 
@@ -19,8 +19,39 @@ class OptimConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FlowTrainConfig:
+    """Stage 1, the full-pose flow (the reference's
+    train_full_pose_norm_flow.py:31-36)."""
+
+    num_keypoints: int = 34
+    batch_size: int = 4 * 64
+    n_epochs: int = 100
+    noise_factor: float = 0.2
+    nll_cap: float = 0.0  # soft cap of the per-sample NLLs (flows.soft_cap_nll); 0 disables
+    optim: OptimConfig = OptimConfig()
+    bf16: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class PartFlowTrainConfig:
+    """Stage 2, the four part flows (the reference's
+    train_leg_torso_left_right_norm_flow.py:37-44)."""
+
+    side_keypoints: int = 22
+    leg_keypoints: int = 14
+    torso_keypoints: int = 20
+    batch_size: int = 256
+    n_epochs: int = 100
+    noise_factor: float = 0.2
+    nll_cap: float = 0.0  # as FlowTrainConfig.nll_cap
+    optim: OptimConfig = OptimConfig()
+    bf16: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class LifterTrainConfig:
-    """Stage 3 (the reference's train_left_right_lifter.py:42-57)."""
+    """Stages 3a and 3b (the reference's train_left_right_lifter.py:42-57;
+    identical in train_leg_torso_lifter.py:44-58)."""
 
     batch_size: int = 256
     n_epochs: int = 100

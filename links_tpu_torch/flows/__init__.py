@@ -6,5 +6,6 @@ from links_tpu_torch.flows.sequence import (  # noqa: F401
     forward,
     inverse,
     nll,
+    nll_mean,
     soft_cap_nll,
 )

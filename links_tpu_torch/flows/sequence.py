@@ -40,6 +40,14 @@ def soft_cap_nll(v: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.where(v > cap, cap + torch.log1p(over), v)
 
 
+def nll_mean(z: torch.Tensor, logdet: torch.Tensor, cap: float = 0.0) -> torch.Tensor:
+    """The mean per-sample NLL, each soft-capped at ``cap`` unless it is 0."""
+    v = nll(z, logdet)
+    if cap:
+        v = soft_cap_nll(v, cap)
+    return v.mean()
+
+
 @torch.no_grad()
 def draw_samples(flow: Flow, x: torch.Tensor, eps: torch.Tensor, noise_factor: float = 0.2,
                  policy: Policy = F32) -> torch.Tensor:

@@ -1,6 +1,8 @@
 """Batched pose metrics (counterpart of links_tpu/metrics: the subset the
-stage-3a validation uses). PA-MPJPE is the MATLAB-style similarity
-Procrustes with reflection='best', one batched f32 SVD over all poses."""
+stage-3a and 3b validations use). PA-MPJPE is the MATLAB-style similarity
+Procrustes with reflection='best', one batched f32 SVD over all poses.
+N-MPJPE, PCK and AUC root-center both poses and scale the prediction to the
+reference's norm first."""
 
 from __future__ import annotations
 
@@ -10,9 +12,10 @@ import torch
 UPPER_BODY_JOINTS = (7, 8, 9, 10)
 
 
-def n_mpjpe(p_ref: torch.Tensor, p: torch.Tensor, use_scaling: bool = True,
-            root_joint: int = 0, num_joints: int = 17) -> torch.Tensor:
-    """Norm-scaled MPJPE of (B, 3J) poses. Returns (B,)."""
+def _joint_errors(p_ref: torch.Tensor, p: torch.Tensor, use_scaling: bool,
+                  root_joint: int, num_joints: int) -> torch.Tensor:
+    """(B, J) distances between root-centered (B, 3J) poses, the prediction
+    scaled to the reference's norm when ``use_scaling``."""
     p = p.reshape(-1, 3, num_joints)
     p_ref = p_ref.reshape(-1, 3, num_joints)
     p = p - p[:, :, root_joint:root_joint + 1]
@@ -22,7 +25,29 @@ def n_mpjpe(p_ref: torch.Tensor, p: torch.Tensor, use_scaling: bool = True,
         scale = (torch.linalg.vector_norm(flat_ref, dim=1, keepdim=True)
                  / torch.linalg.vector_norm(flat, dim=1, keepdim=True))
         p = (flat * scale).reshape(-1, 3, num_joints)
-    return torch.linalg.vector_norm(p - p_ref, dim=1).mean(dim=1)
+    return torch.linalg.vector_norm(p - p_ref, dim=1)
+
+
+def n_mpjpe(p_ref: torch.Tensor, p: torch.Tensor, use_scaling: bool = True,
+            root_joint: int = 0, num_joints: int = 17) -> torch.Tensor:
+    """Norm-scaled MPJPE of (B, 3J) poses. Returns (B,)."""
+    return _joint_errors(p_ref, p, use_scaling, root_joint, num_joints).mean(dim=1)
+
+
+def pck(p_ref: torch.Tensor, p: torch.Tensor, use_scaling: bool = True, root_joint: int = 0,
+        num_joints: int = 17, thresh: float = 150.0) -> torch.Tensor:
+    """Percentage of joints within ``thresh`` mm. Returns a scalar."""
+    dist = _joint_errors(p_ref, p, use_scaling, root_joint, num_joints)
+    return (dist < thresh).sum() / dist.numel() * 100.0
+
+
+def auc(p_ref: torch.Tensor, p: torch.Tensor, use_scaling: bool = True, root_joint: int = 0,
+        num_joints: int = 17) -> torch.Tensor:
+    """Area under the PCK curve over the thresholds linspace(0, 150, 150).
+    Returns a scalar in [0, 1]."""
+    dist = _joint_errors(p_ref, p, use_scaling, root_joint, num_joints)
+    ts = torch.linspace(0.0, 150.0, 150, device=dist.device)
+    return (dist[None] < ts[:, None, None]).sum() / (dist.numel() * 150)
 
 
 def procrustes_align(p_ref: torch.Tensor, p: torch.Tensor, num_joints: int = 17) -> torch.Tensor:

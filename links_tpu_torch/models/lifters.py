@@ -19,6 +19,8 @@ from links_tpu_torch.core.nn import F32, Linear, Policy, leaky_relu
 from links_tpu_torch.ops.resblock import res_block
 
 HIDDEN = 1024
+LEG_JOINTS = 7
+TORSO_JOINTS = 10
 # The residual blocks in the order the fused serving kernel runs them.
 CHAIN = ("res_common", "res_pose1", "res_pose2", "res_pose3",
          "res_angle1", "res_angle2", "res_angle3")
@@ -81,3 +83,13 @@ class StackedLifter(nn.Module):
         ld, la = self.left(left_x, policy)
         rd, ra = self.right(right_x, policy)
         return ld, rd, la, ra
+
+
+class LegTorsoLifter(nn.Module):
+    """The (legs, torso) lifter pair of the leg/torso lifting mode (7 and 10
+    joints), registered in that order, which fixes ``parameters()``'s."""
+
+    def __init__(self, legs: Lifter, torso: Lifter):
+        super().__init__()
+        self.legs = legs
+        self.torso = torso

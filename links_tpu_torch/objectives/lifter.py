@@ -3,7 +3,9 @@
 Eval forwards: lift, pin the root's depth offset to 0, add the depth offset
 (no clamp at eval) and reconstruct camera-frame 3D.
 
-Stage-3a training loss (the reference's train_left_right_lifter.py:121-423):
+Stage-3 training losses (the reference's train_left_right_lifter.py:121-423
+for 3a's left/right pair, train_leg_torso_lifter.py:123-272 for 3b's
+legs/torso pair):
   1. the lifters emit per-joint depth offsets and an elevation angle;
   2. depth z = offset + cfg.depth (root offset pinned to 0), clamped >= 1;
   3. 3D reconstruction X = x z, Y = y z, Z = z, root-centered;
@@ -21,7 +23,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from links_tpu_torch import flows
@@ -35,6 +36,7 @@ from links_tpu_torch.core.geometry import (
 from links_tpu_torch.core.nn import F32, Policy
 from links_tpu_torch.core.skeleton import (
     BONE_RELATIONS_MEAN_H36M,
+    BONE_RELATIONS_MEAN_MPI_VNECT_INTERESTING,
     combine_left_right_pred_1d,
     get_bone_lengths_all,
     split_data_left_right,
@@ -76,12 +78,13 @@ def lift_leg_torso_eval(legs, torso, poses_2d: torch.Tensor,
 
 
 class LifterFrozen(NamedTuple):
-    """The frozen flows of the stage-3a loss: the 34-d full-pose flow and the
-    22-d left and right flows."""
+    """The frozen flows of a stage-3 loss: the 34-d full-pose flow and the
+    two part flows, left and right (22-d each) in 3a, legs (14-d) and torso
+    (20-d) in 3b."""
 
     full_flow: flows.Flow
-    part_a: flows.Flow  # left
-    part_b: flows.Flow  # right
+    part_a: flows.Flow  # left / legs
+    part_b: flows.Flow  # right / torso
 
 
 def reconstruct_3d(poses_2d: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
@@ -118,11 +121,11 @@ def _pairwise_deformation(pred_3d: torch.Tensor, re_rot_3d: torch.Tensor) -> tor
     return torch.linalg.vector_norm(diff, dim=1).mean()
 
 
-def _bl_prior(pred_3d: torch.Tensor) -> torch.Tensor:
-    """Relative bone-length prior against H36M's mean bone relations."""
+def _bl_prior(pred_3d: torch.Tensor, bone_relations_mean) -> torch.Tensor:
+    """Relative bone-length prior against the (16,) mean bone relations."""
     bl = get_bone_lengths_all(pred_3d.reshape(-1, 51))
     rel = bl / bl.mean(dim=1, keepdim=True)
-    mean = torch.as_tensor(BONE_RELATIONS_MEAN_H36M.astype(np.float32), device=pred_3d.device)
+    mean = torch.as_tensor(bone_relations_mean, dtype=torch.float32, device=pred_3d.device)
     return ((mean - rel) ** 2).sum(dim=1).mean()
 
 
@@ -134,25 +137,24 @@ def augment_with_samples(full_flow: flows.Flow, poses_2d: torch.Tensor, eps: tor
     return torch.cat([poses_2d, samples], dim=0)
 
 
-def _capped_nll_mean(z, logdet, nll_cap: float) -> torch.Tensor:
-    v = flows.nll(z, logdet)
-    if nll_cap:
-        v = flows.soft_cap_nll(v, nll_cap)
-    return v.mean()
+def _pin_root(pred: torch.Tensor) -> torch.Tensor:
+    """(N, 17) depth offsets with the root's set to 0."""
+    return torch.cat([torch.zeros_like(pred[:, :1]), pred[:, 1:]], dim=1)
 
 
 def _root_pinned(left_pred, right_pred, choice: str, n: int) -> torch.Tensor:
-    pred = combine_left_right_pred_1d(left_pred, right_pred, choice).reshape(n, 17)
-    return torch.cat([torch.zeros_like(pred[:, :1]), pred[:, 1:]], dim=1)
+    return _pin_root(combine_left_right_pred_1d(left_pred, right_pred, choice).reshape(n, 17))
 
 
 def left_right_loss(stacked, frozen: LifterFrozen, inp_poses: torch.Tensor,
                     u_azim: torch.Tensor, eps_elev: torch.Tensor, cfg: LifterTrainConfig,
-                    policy: Policy = F32):
+                    policy: Policy = F32, bone_relations_mean=None):
     """Stage-3a loss of a ``StackedLifter`` on (N, 34) poses already
     augmented with flow samples; ``u_azim`` and ``eps_elev`` (N, 1) are the
-    rotation's draws (``sample_rotation``). -> (loss, aux) with the JAX
-    package's aux keys."""
+    rotation's draws (``sample_rotation``); ``bone_relations_mean`` (16,)
+    defaults to H36M's. -> (loss, aux) with the JAX package's aux keys."""
+    if bone_relations_mean is None:
+        bone_relations_mean = BONE_RELATIONS_MEAN_H36M
     n = inp_poses.shape[0]
     left_inp, right_inp = split_data_left_right(inp_poses)
     left_pred, right_pred, left_ang, right_ang = stacked(left_inp, right_inp, policy)
@@ -171,10 +173,10 @@ def left_right_loss(stacked, frozen: LifterFrozen, inp_poses: torch.Tensor,
     # each side's flow sees its own rotated view
     norm_left_side, _ = split_data_left_right(rot_2d_left)
     _, norm_right_side = split_data_left_right(rot_2d_right)
-    likeli_left = _capped_nll_mean(*flows.forward(frozen.part_a, norm_left_side, policy),
-                                   cfg.nll_cap)
-    likeli_right = _capped_nll_mean(*flows.forward(frozen.part_b, norm_right_side, policy),
-                                    cfg.nll_cap)
+    likeli_left = flows.nll_mean(*flows.forward(frozen.part_a, norm_left_side, policy),
+                                 cfg.nll_cap)
+    likeli_right = flows.nll_mean(*flows.forward(frozen.part_b, norm_right_side, policy),
+                                  cfg.nll_cap)
     likeli = likeli_left + likeli_right
 
     # re-lift the rotated views; no loss reads their angles, so the angle
@@ -205,11 +207,64 @@ def left_right_loss(stacked, frozen: LifterFrozen, inp_poses: torch.Tensor,
     re_rot_3d = _pairwise_deformation(pred_3d_left, re_rot_3d_left)
     re_rot_3d = re_rot_3d + _pairwise_deformation(pred_3d_right, re_rot_3d_right)
 
-    bl_prior = _bl_prior(pred_3d_left) + _bl_prior(pred_3d_right)
+    bl_prior = (_bl_prior(pred_3d_left, bone_relations_mean)
+                + _bl_prior(pred_3d_right, bone_relations_mean))
 
     loss = (cfg.weight_likeli * likeli + cfg.weight_2d * rep_rot + cfg.weight_3d * L3d
             + cfg.weight_velocity * re_rot_3d + cfg.weight_bl * bl_prior)
     aux = {"likeli": likeli, "likeli_left": likeli_left, "likeli_right": likeli_right,
+           "L3d": L3d, "rep_rot": rep_rot, "re_rot_3d": re_rot_3d, "bl_prior": bl_prior,
+           "loss": loss}
+    return loss, aux
+
+
+def leg_torso_loss(legs, torso, frozen: LifterFrozen, inp_poses: torch.Tensor,
+                   u_azim: torch.Tensor, eps_elev: torch.Tensor, cfg: LifterTrainConfig,
+                   policy: Policy = F32, bone_relations_mean=None):
+    """Stage-3b loss of the legs (joints 0-6) and torso (7-16) ``Lifter``s
+    on (N, 34) poses already augmented with flow samples: one combined depth
+    vector, one rotation and reprojection, and the five losses of 3a, with
+    the legs and torso flows (``frozen.part_a``, ``part_b``) as the
+    likelihood. ``bone_relations_mean`` defaults to the MPI "vnect
+    interesting" means, as the reference's file does. -> (loss, aux) with
+    the JAX package's aux keys."""
+    if bone_relations_mean is None:
+        bone_relations_mean = BONE_RELATIONS_MEAN_MPI_VNECT_INTERESTING
+    n = inp_poses.shape[0]
+    inp_legs, inp_torso = split_data_legs_torso(inp_poses)
+    legs_pred, legs_ang = legs(inp_legs, policy)
+    torso_pred, torso_ang = torso(inp_torso, policy)
+    props = (legs_ang + torso_ang) / 2.0
+    pred = _pin_root(torch.cat([legs_pred, torso_pred], dim=1))
+
+    R = sample_rotation(props, u_azim, eps_elev)
+    pred_3d = reconstruct_3d(inp_poses, torch.clamp(pred + cfg.depth, min=1.0))
+    rot_poses = (R @ pred_3d).reshape(n, 51)
+    rot_2d = perspective_projection(globalize(rot_poses, cfg.depth))
+
+    leg_rot, torso_rot = split_data_legs_torso(rot_2d)
+    leg_likeli = flows.nll_mean(*flows.forward(frozen.part_a, leg_rot, policy), cfg.nll_cap)
+    torso_likeli = flows.nll_mean(*flows.forward(frozen.part_b, torso_rot, policy), cfg.nll_cap)
+    likeli = leg_likeli + torso_likeli
+
+    # re-lift the rotated view; as in 3a, no loss reads its angles
+    legs_pred_rot, _ = legs(leg_rot, policy)
+    torso_pred_rot, _ = torso(torso_rot, policy)
+    pred_rot = _pin_root(torch.cat([legs_pred_rot, torso_pred_rot], dim=1))
+    pred_3d_rot = reconstruct_3d(rot_2d, torch.clamp(pred_rot + cfg.depth, min=1.0))
+
+    L3d = torch.linalg.vector_norm(rot_poses - pred_3d_rot.reshape(n, 51), dim=1).mean()
+
+    re_rot_3d_pose = (R.transpose(1, 2) @ pred_3d_rot).reshape(n, 51)
+    re_rot_2d = perspective_projection(globalize(re_rot_3d_pose, cfg.depth))
+    rep_rot = torch.abs(re_rot_2d - inp_poses).sum(dim=1).mean()
+
+    re_rot_3d = _pairwise_deformation(pred_3d, re_rot_3d_pose)
+    bl_prior = _bl_prior(pred_3d, bone_relations_mean)
+
+    loss = (cfg.weight_likeli * likeli + cfg.weight_2d * rep_rot + cfg.weight_3d * L3d
+            + cfg.weight_velocity * re_rot_3d + cfg.weight_bl * bl_prior)
+    aux = {"likeli": likeli, "leg_likeli": leg_likeli, "torso_likeli": torso_likeli,
            "L3d": L3d, "rep_rot": rep_rot, "re_rot_3d": re_rot_3d, "bl_prior": bl_prior,
            "loss": loss}
     return loss, aux

@@ -1,7 +1,7 @@
 """End-to-end slice test: ``links_tpu_torch.cli.train_left_right_lifter`` on the
 CPU, on a tiny synthetic pickle with seeded frozen flows written by the JAX
 package (``save_pt(flow_to_torch(...))``), and the lifters it writes served
-by both packages."""
+by both packages, ``links_tpu_torch.cli.lift --model-dir`` included."""
 
 import contextlib
 import io
@@ -77,6 +77,21 @@ def test_written_lifters_serve_in_both_packages(run, trained, tmp_path):
                                   state.model.right.res_angle1.l2.weight.detach().numpy().T)
 
 
+def test_lift_finds_the_trainers_lifters_in_model_dir(run, trained, tmp_path):
+    """``lift --model-dir`` alone serves the pair the trainer wrote
+    (``{left,right}_side_lifter_final.pt``), as the JAX package's lift
+    serves its trainer's artifact."""
+    state, _ = trained
+    pred = tlift.main(["--data", str(run / "synthetic.pkl"), "--model-dir", str(run),
+                       "--device", "cpu", "--out", str(tmp_path / "o.npz")])
+    want = tlift.main(["--data", str(run / "synthetic.pkl"), "--device", "cpu",
+                       "--left-pt", str(run / "left_side_lifter_final.pt"),
+                       "--right-pt", str(run / "right_side_lifter_final.pt"),
+                       "--out", str(tmp_path / "want.npz")])
+    assert pred.shape == (40, 3, 17) and np.isfinite(pred).all()
+    np.testing.assert_array_equal(pred, want)
+
+
 def test_seed_decides_the_run(run, trained, tmp_path):
     """The same --seed gives the same weights: init and every draw come from
     generators seeded by it."""
@@ -96,12 +111,27 @@ def test_seed_decides_the_run(run, trained, tmp_path):
     (["--select-by", "nll"], "--select-by: not yet ported"),
     (["--flip-guard", "3"], "--flip-guard: not yet ported"),
     (["--wandb"], "--wandb: not yet ported"),
-    (["--bone-means", "data"], "--bone-means data: not yet ported"),
     (["--test-scale", "auto"], "--test-scale auto is not yet ported"),
 ])
 def test_unported_flags_are_refused(run, flags, message):
     with pytest.raises(SystemExit, match=message):
         ttrain.main(_args(run, *flags))
+
+
+@pytest.mark.parametrize("bone_means", ["data", "mpi_vnect_interesting"])
+def test_bone_means_choices_train(run, trained, tmp_path, bone_means):
+    """3a trains with the prior means of the train split's 3D ground truth and
+    with the MPI means; the bone prior differs from the H36M run's."""
+    for name in ("full_flow", "flow_left", "flow_right"):
+        shutil.copy(run / f"{name}.pt", tmp_path)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        state = ttrain.main(_args(run, "--model-dir", str(tmp_path), "--bone-means", bone_means))
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert state.step == 2 and all(np.isfinite(v) for v in summary["last"].values())
+    assert (tmp_path / "left_side_lifter_final.pt").exists()
+    h36m = json.loads(trained[1][-1])["last"]
+    assert summary["last"]["bl_prior"] != pytest.approx(h36m["bl_prior"], rel=1e-3)
 
 
 def test_missing_flows_are_named(run, tmp_path):

@@ -17,8 +17,10 @@ import torch
 
 from links_tpu import flows as jflows
 from links_tpu import models as jmodels
+from links_tpu.config import FlowTrainConfig as JFlowTrainConfig
 from links_tpu.config import LifterTrainConfig as JLifterTrainConfig
 from links_tpu.config import OptimConfig as JOptimConfig
+from links_tpu.config import PartFlowTrainConfig as JPartFlowTrainConfig
 from links_tpu.core import geometry as jgeo
 from links_tpu.core import nn as jnn
 from links_tpu.objectives import lifter as jlifter_obj
@@ -31,7 +33,12 @@ from links_tpu_torch.ckpt.torch_io import (
     lifter_from_state_dict,
     lifter_params_from_jax,
 )
-from links_tpu_torch.config import LifterTrainConfig, OptimConfig
+from links_tpu_torch.config import (
+    FlowTrainConfig,
+    LifterTrainConfig,
+    OptimConfig,
+    PartFlowTrainConfig,
+)
 from links_tpu_torch.core import geometry as tgeo
 from links_tpu_torch.core import nn as tnn
 from links_tpu_torch.data.synthetic import generate_poses
@@ -271,8 +278,11 @@ def test_epoch_loop_permutes_drops_the_remainder_and_averages():
 
 
 def test_config_defaults_match_the_jax_package():
-    """The same defaults; the port has no ``use_elevation`` (always on)."""
+    """The same defaults; the port's lifter config has no ``use_elevation``
+    (always on)."""
     want = dataclasses.asdict(JLifterTrainConfig())
     assert want.pop("use_elevation") is True
     assert dataclasses.asdict(LifterTrainConfig()) == want
     assert dataclasses.asdict(OptimConfig()) == dataclasses.asdict(JOptimConfig())
+    assert dataclasses.asdict(FlowTrainConfig()) == dataclasses.asdict(JFlowTrainConfig())
+    assert dataclasses.asdict(PartFlowTrainConfig()) == dataclasses.asdict(JPartFlowTrainConfig())
