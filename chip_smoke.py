@@ -13,20 +13,22 @@ Phases, each fatal on failure:
      at the training, serving and validation batches under both dtype
      policies, all bitwise repeatable, with K1's split kernel (bitwise) and
      its weight-plane cache;
-  3. one training step of each stage (1, 2, 3a, 3b) on the card against the
-     same step on the CPU (full-width lifters and 8-block flows at hidden
-     1024, batch 64, the same weights and draws), counting the
-     residual-block launches of the step;
+  3. one training step of each stage (1, 2, 3a, 3b, 4) on the card against
+     the same step on the CPU (full-width lifters, completers and 8-block
+     flows at hidden 1024, batch 64, the same weights and draws), counting
+     the residual-block launches of the step and the weight casts of a
+     first and a second step;
   4. drive the main paths through their entry points on a synthetic
      corpus, each with the kernels' counts set to 0 just before it and read
      just after: ``links_tpu_torch.cli.lift`` of seeded lifters (--fused,
-     --policy bf16, f32); the trainers of stages 1, 2, 3a and 3b, one epoch
-     each, each stage reading what the one before wrote (no flow is made
-     outside them); then ``lift --model-dir`` of the 3a lifters (--fused,
-     --policy bf16) and ``lift --mode leg_torso`` of the 3b lifters;
+     --policy bf16, f32); the trainers of stages 1, 2, 3a, 3b and 4, one
+     epoch each, each stage reading what the ones before wrote (no flow or
+     lifter is made outside them); then ``lift --model-dir`` of the 3a
+     lifters (--fused, --policy bf16), ``lift --mode leg_torso`` of the 3b
+     lifters and ``lift --scenario`` of every occlusion scenario;
   5. time each stage's training step at batch 256 and then K2, before any
      torch.profiler session (one often leaves the process slower); then the
-     3a step's profile, and each kernel, its plain version, a library
+     3a and stage-4 steps' profiles, and each kernel, its plain version, a library
      yardstick (the same function as torch calls replayed from a CUDA graph)
      and its bound. Kernels are timed on the device from a CUDA graph of
      their wrapper's calls, as the yardstick is, and eagerly beside it (the
@@ -42,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import subprocess
@@ -62,10 +65,12 @@ from links_tpu_torch.cli._common import LR_LIFTERS
 from links_tpu_torch.cli import train_full_pose_norm_flow as flow1_cli
 from links_tpu_torch.cli import train_left_right_lifter as train_cli
 from links_tpu_torch.cli import train_leg_torso_lifter as leg_torso_cli
+from links_tpu_torch.cli import train_occlusion_models as occlusion_cli
 from links_tpu_torch.cli import train_part_norm_flows as flow2_cli
 from links_tpu_torch.config import (
     FlowTrainConfig,
     LifterTrainConfig,
+    OcclusionTrainConfig,
     OptimConfig,
     PartFlowTrainConfig,
 )
@@ -74,6 +79,7 @@ from links_tpu_torch.core.nn import BF16, F32, full_f32_matmuls
 from links_tpu_torch.core.skeleton import split_data_left_right
 from links_tpu_torch.data.synthetic import generate_poses, write_synthetic_pickle
 from links_tpu_torch.flows import Flow
+from links_tpu_torch.models.completers import COMPLETER_SPECS, Completers
 from links_tpu_torch.models.lifters import (
     CHAIN,
     LEG_JOINTS,
@@ -85,6 +91,11 @@ from links_tpu_torch.models.lifters import (
 from links_tpu_torch.objectives import lifter as obj
 from links_tpu_torch.objectives.flow_nll import PartFlows
 from links_tpu_torch.objectives.lifter import LifterFrozen
+from links_tpu_torch.objectives.occlusion import (
+    DROPOUT_SCENARIO_JOINTS,
+    occlusion_loss,
+    pseudo_3d_from_lifters,
+)
 from links_tpu_torch.ops import _build
 from links_tpu_torch.ops import fused_infer as K2
 from links_tpu_torch.ops import resblock as K1
@@ -117,14 +128,17 @@ K1_BF16_ULP = 2.0 ** -7
 # one-term control, computed here in PyTorch, exceeds the limit.
 K1_FLIP_REL = 1e-5
 K1_FLIP_SHARE = 0.1
-K1_BATCHES = (1, 37, 512, 4096)  # serving, ragged, training step (2 x 256), validation
+# serving, ragged, one lifter at the main batch (stage 4's frozen legs and
+# torso lifters, and the chunks of lift --policy/--mode/--scenario), lifter
+# training step (2 x 256), stage-4 step ((2 + 1) x 256), validation
+K1_BATCHES = (1, 37, 256, 512, 768, 4096)
 # One training step of each stage, card vs CPU (bf16 policy, batch 64): loss
 # terms within rtol = 1e-3, atol = 1e-4 and each gradient within a relative
 # L2 error of 2e-2. The sides differ by bf16 rounding flips of hidden
 # activations and of the rounded gradient products, which the 7-block chains
 # carry on (7.1e-3 observed on an H100 for 3a).
 STEP_RTOL, STEP_ATOL, STEP_GRAD_REL = 1e-3, 1e-4, 2e-2
-STAGE_NAMES = ("stage 1", "stage 2", "3a", "3b")
+STAGE_NAMES = ("stage 1", "stage 2", "3a", "3b", "stage 4")
 # Residual-block calls per lifter training step (3a and 3b alike: two
 # lifters, all chain blocks H x H): 7 blocks x 2 lifters x (lift + re-lift)
 # forward; backward only where a loss reads the output: no loss reads the
@@ -135,6 +149,18 @@ STAGE_NAMES = ("stage 1", "stage 2", "3a", "3b")
 K1_FWD_PER_STEP = 2 * 2 * 7
 K1_BWD_PER_STEP = K1_FWD_PER_STEP - 2 * 3
 K1_CASTS_PER_STEP = 2 * 7 * 2
+# Stage 4: 3 blocks x 8 completers forward and backward (one call each on the
+# (n_rot + 1) B rows), and the frozen legs and torso lifters' 7 blocks each
+# forward, with no gradient (their 3 angle blocks each run for nothing: no
+# loss reads the angles). The completers' 48 weights are cast after each
+# Adam update; the frozen lifters' 28 only on the first step.
+K1_STAGE4 = (8 * 3 + 2 * 7, 8 * 3)
+K1_STAGE4_CASTS = (8 * 3 * 2 + 2 * 7 * 2, 8 * 3 * 2)
+# -> (forward calls, backward calls, casts of a first step, casts of a second)
+K1_PER_STEP = {"stage 1": (0, 0, 0, 0), "stage 2": (0, 0, 0, 0),
+               "3a": (K1_FWD_PER_STEP, K1_BWD_PER_STEP, K1_CASTS_PER_STEP, K1_CASTS_PER_STEP),
+               "3b": (K1_FWD_PER_STEP, K1_BWD_PER_STEP, K1_CASTS_PER_STEP, K1_CASTS_PER_STEP),
+               "stage 4": (*K1_STAGE4, *K1_STAGE4_CASTS)}
 TIMED_BATCHES = (1, 256, 512)
 MAIN_BATCH = 256          # --batch-size of the main paths
 TEST_POSES = 2048         # synthetic poses per test subject (S9, S11)
@@ -150,6 +176,18 @@ BF16_FLOPS = 989e12
 
 def _log(msg):
     print(msg, flush=True)
+
+
+# host seconds of each phase of main() and of each entry-point call of the
+# main path, logged at the end
+SECONDS = {}
+
+
+def _timed(name: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    SECONDS[name] = time.perf_counter() - t0
+    return out
 
 
 def _time_ms(fn, iters=50, warmup=5) -> tuple[float, float]:
@@ -454,9 +492,10 @@ class Stage(NamedTuple):
 
 def _stage(name: str, seed: int, batch: int) -> Stage:
     """Stage ``name`` at full width (flows: 8 blocks at hidden 1024; lifters
-    at hidden 1024) from a seeded generator, with the trainers' defaults
-    (bf16 matmuls; flows: f32 Adam moments, no NLL cap; lifters: bf16
-    moments, cap 500)."""
+    and completers at hidden 1024) from a seeded generator, with the
+    trainers' defaults (bf16 matmuls; flows and completers: f32 Adam
+    moments; flows: no NLL cap; lifters: bf16 moments, cap 500; completers:
+    2 rotations, no input noise)."""
     g = torch.Generator().manual_seed(seed)
 
     def flow(dim):
@@ -473,6 +512,15 @@ def _stage(name: str, seed: int, batch: int) -> Stage:
         return Stage(parts, (flow(34),), PartFlowTrainConfig(batch_size=batch),
                      lambda fr, cfg: steps.build_part_flows_grads(fr[0], cfg),
                      lambda fr, cfg: steps.build_part_flows_step(fr[0], cfg), steps.draw_noise)
+    if name == "stage 4":
+        cfg = OcclusionTrainConfig(batch_size=batch)
+        lifters = tuple(Lifter(j, HIDDEN, generator=g).requires_grad_(False)
+                        for j in (LEG_JOINTS, TORSO_JOINTS))
+        return Stage(Completers(HIDDEN, generator=g), lifters, cfg,
+                     lambda fr, cfg: steps.build_occlusion_grads(*fr, cfg),
+                     lambda fr, cfg: steps.build_occlusion_step(*fr, cfg),
+                     functools.partial(steps.draw_occlusion, n_rot=cfg.n_rot,
+                                       input_noise=cfg.input_noise))
     cfg = LifterTrainConfig(nll_cap=500.0, batch_size=batch, optim=OptimConfig(bf16_moments=True))
     if name == "3a":
         model = StackedLifter(Lifter(11, HIDDEN, generator=g), Lifter(11, HIDDEN, generator=g))
@@ -489,9 +537,10 @@ def _stage(name: str, seed: int, batch: int) -> Stage:
 
 
 def _to(draws, device):
-    """A step's draws (a tensor or a StepDraws) on ``device``."""
-    if isinstance(draws, steps.StepDraws):
-        return steps.StepDraws(*(t.to(device) for t in draws))
+    """A step's draws (a tensor, a StepDraws or an OcclusionDraws) on
+    ``device``."""
+    if isinstance(draws, tuple):
+        return type(draws)(*(None if t is None else t.to(device) for t in draws))
     return draws.to(device)
 
 
@@ -508,8 +557,9 @@ def _counts() -> dict:
 
 def phase_step_card_vs_cpu(name: str) -> tuple[int, int]:
     """One training step of stage ``name`` (bf16 policy) on the card and on
-    the CPU from the same weights, batch and draws. -> the card's (forward,
-    backward) K1 launches."""
+    the CPU from the same weights, batch and draws; on the card the weight
+    casts of a second gradient after the update, too. -> the card's
+    (forward, backward) K1 launches."""
     stage = _stage(name, seed=1, batch=STEP_CHECK_BATCH)
     batch = _synthetic_batch(STEP_CHECK_BATCH, seed=7)
     draws = stage.draw(torch.Generator().manual_seed(8), STEP_CHECK_BATCH, "cpu")
@@ -530,11 +580,16 @@ def phase_step_card_vs_cpu(name: str) -> tuple[int, int]:
         Adam(model.parameters(), stage.cfg.optim, steps_per_epoch=40).step(grads)
         out[dev] = ({k: float(v) for k, v in aux.items()}, [t.cpu() for t in grads],
                     [p.detach().cpu() for p in model.parameters()])
-    want = (K1_FWD_PER_STEP, K1_BWD_PER_STEP, K1_CASTS_PER_STEP) if name in ("3a", "3b") \
-        else (0, 0, 0)  # the flow stages run no residual block
-    if (*launches, casts) != want:
+        if dev == "cuda":
+            K1.weight_plane.casts = 0
+            grads_fn(model, batch.to(dev), _to(draws, dev))
+            torch.cuda.synchronize()
+            casts = (casts, K1.weight_plane.casts)
+    want = K1_PER_STEP[name]
+    if (*launches, *casts) != want:
         raise AssertionError(f"one {name} step launched the residual-block kernels {launches} "
-                             f"times with {casts} weight casts, expected {want}")
+                             f"times with {casts} weight casts (first, second step), expected "
+                             f"{want}")
     (aux_c, grads_c, params_c), (aux_g, grads_g, params_g) = out["cpu"], out["cuda"]
     for k, v in aux_c.items():
         if not abs(aux_g[k] - v) <= STEP_ATOL + STEP_RTOL * abs(v):
@@ -552,7 +607,7 @@ def phase_step_card_vs_cpu(name: str) -> tuple[int, int]:
          f"{max(rel):.2e} over {len(rel)} tensors (bound {STEP_GRAD_REL}), params after Adam "
          f"within {upd:.2e} (bound {2 * stage.cfg.optim.learning_rate:.1e}); K1 calls "
          f"{launches[0]} forward + {launches[1]} backward, {per_call[0]:.0f} + {per_call[1]:.0f} "
-         f"CUDA launches per call, {casts} weight casts")
+         f"CUDA launches per call, {casts[0]} weight casts ({casts[1]} in a second step)")
     return launches
 
 
@@ -561,9 +616,11 @@ def _train(module, common: list, name: str):
     -> (state, summary, counts)."""
     out = io.StringIO()
     _reset_counts()
+    t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         state = module.main(common + ["--epochs", "1", "--seed", "0"])
     counts = _counts()
+    SECONDS[name] = time.perf_counter() - t0
     lines = out.getvalue().strip().splitlines()
     summary = json.loads(lines[-1])
     _log(f"[main] {name}: {lines[-2]}")
@@ -579,8 +636,10 @@ def _train(module, common: list, name: str):
 def _lift(common: list, flags: list, out: Path, name: str) -> tuple[np.ndarray, dict]:
     """One call of the serving entry point, its kernel launches counted from 0."""
     _reset_counts()
+    t0 = time.perf_counter()
     pred = lift.main(common + flags + ["--out", str(out)])
     counts = _counts()
+    SECONDS[f"lift {name}"] = time.perf_counter() - t0
     n = 2 * TEST_POSES
     if pred.shape != (n, 3, 17) or not np.isfinite(pred).all():
         raise AssertionError(f"lift {name}: expected finite ({n}, 3, 17) poses, got {pred.shape}")
@@ -622,10 +681,12 @@ def phase_main_path(stacked) -> tuple[dict, dict]:
     """The main paths through their entry points, each with the kernels'
     counts set to 0 just before it and read just after: the serving lift of
     seeded lifters (K2's path, and K1's forward under --policy); then the
-    trainers of stages 1, 2, 3a and 3b, one epoch each, every stage reading
-    what the one before it wrote (K1's path in 3a and 3b); then lift of the
-    3a lifters from --model-dir alone (--fused, --policy bf16) and of the 3b
-    lifters (--mode leg_torso). -> (counts by path, trainer summaries)."""
+    trainers of stages 1, 2, 3a, 3b and 4, one epoch each, every stage
+    reading what the ones before it wrote (K1's path in 3a, 3b and 4); then
+    lift of the 3a lifters from --model-dir alone (--fused, --policy bf16),
+    of the 3b lifters (--mode leg_torso) and of every occlusion scenario
+    (--scenario: the four lifters and a completer). -> (counts by path,
+    trainer summaries)."""
     counts, summaries = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -652,7 +713,7 @@ def phase_main_path(stacked) -> tuple[dict, dict]:
              f"{f32_gap:.3e}; fused_sides_forward launches "
              f"{counts['lift fused']['fused_sides_forward']}")
 
-        # stages 1 -> 2 -> 3a -> 3b, one epoch each, in one model directory
+        # stages 1 -> 2 -> 3a -> 3b -> 4, one epoch each, in one model directory
         models = tmp / "models"
         train = common + ["--model-dir", str(models)]
         n_steps = 5 * TRAIN_POSES // MAIN_BATCH
@@ -661,15 +722,18 @@ def phase_main_path(stacked) -> tuple[dict, dict]:
                 ("stage 2", flow2_cli, ["flow_left.pt", "flow_right.pt", "flow_legs.pt",
                                         "flow_torso.pt"]),
                 ("3a", train_cli, ["left_side_lifter_final.pt", "right_side_lifter_final.pt"]),
-                ("3b", leg_torso_cli, ["leg_lifter.pt", "torso_lifter.pt"])):
+                ("3b", leg_torso_cli, ["leg_lifter.pt", "torso_lifter.pt"]),
+                ("stage 4", occlusion_cli, [f"occlusion_model_weights/{c}_estimator.pt"
+                                            for c in COMPLETER_SPECS])):
             _, summaries[name], counts[name] = _train(module, train, name)
             missing = [f for f in files if not (models / f).exists()]
             if missing:
                 raise AssertionError(f"{name} wrote no {missing}")
             k1 = counts[name]
-            lifters = name in ("3a", "3b")
-            if (k1["res_block_backward"] != (n_steps * K1_BWD_PER_STEP if lifters else 0)
-                    or (k1["res_block_forward"] <= n_steps * K1_FWD_PER_STEP if lifters
+            fwd, bwd = K1_PER_STEP[name][:2]
+            # the validation adds forward calls to the stages that run K1
+            if (k1["res_block_backward"] != n_steps * bwd
+                    or (k1["res_block_forward"] <= n_steps * fwd if fwd
                         else k1["res_block_forward"] != 0)):
                 raise AssertionError(f"{name}: residual-block kernel launches {k1}")
             _log(f"[main] {name}: {n_steps} steps, wrote {', '.join(files)}; K1 launches "
@@ -683,6 +747,12 @@ def phase_main_path(stacked) -> tuple[dict, dict]:
                                              "3a --policy bf16")
         _, counts["lift 3b"] = _lift(served, ["--mode", "leg_torso"], tmp / "t_lt.npz",
                                      "--mode leg_torso")
+        for scenario in sorted(DROPOUT_SCENARIO_JOINTS):
+            path = f"lift --scenario {scenario}"
+            _, counts[path] = _lift(served, ["--scenario", scenario], tmp / "t_occ.npz",
+                                    f"--scenario {scenario}")
+            if counts[path]["res_block_forward"] < 1:
+                raise AssertionError(f"{path} launched no residual-block kernel: {counts[path]}")
         if counts["lift 3a --fused"]["fused_sides_forward"] < 1 \
                 or counts["lift 3b"]["res_block_forward"] < 1:
             raise AssertionError(f"the lifts of the trained lifters launched no kernel: {counts}")
@@ -700,6 +770,10 @@ def phase_main_path(stacked) -> tuple[dict, dict]:
              f"lift --mode leg_torso of the 3b lifters: finite; launches "
              f"{counts['lift 3a --fused']['fused_sides_forward']} fused_sides_forward, "
              f"{counts['lift 3b']['res_block_forward']} res_block_forward (leg/torso)")
+        _log(f"[main] lift --scenario {'/'.join(sorted(DROPOUT_SCENARIO_JOINTS))} of the trained "
+             f"lifters and completers: finite ({2 * TEST_POSES}, 3, 17) each; res_block_forward "
+             f"launches " + ", ".join(f"{s} {counts['lift --scenario ' + s]['res_block_forward']}"
+                                      for s in sorted(DROPOUT_SCENARIO_JOINTS)))
     return counts, summaries
 
 
@@ -866,19 +940,21 @@ def _kernel_breakdown(fn, calls: int = 20):
 
 
 def phase_k1_times(smi):
-    """K1 forward and backward per call at the training step's batch (2 x 256)
-    and the validation batch, bf16 policy; the f32 policy at the validation
-    batch (the validation lifts run f32). The kernels run with a warm
-    weight-plane cache; the cast of one weight is timed beside them. The
-    kernel's graph and eager times and the library's are the least of three
-    runs each, taken in turns. -> rows of the bf16 training batch, and the ms
-    of one weight cast."""
+    """K1 forward and backward per call under the bf16 policy at the batches
+    of the training steps (stage 4's frozen lifters 256, the lifter steps 2 x
+    256, stage 4's completers 3 x 256) and the validation batch; the f32
+    policy at the validation batch (the validation lifts run f32). The
+    kernels run with a warm weight-plane cache; the cast of one weight is
+    timed beside them. The kernel's graph and eager times and the library's
+    are the least of three runs each, taken in turns. -> rows by (batch,
+    policy, 'forward' or 'backward'), and the ms of one weight cast."""
     w = _k1_inputs(1, seed=12)[1]
     cast_ms, _ = _time_ms(lambda: w.to(torch.bfloat16))
     _log(f"[time] weight cast to bf16 ({HIDDEN} x {HIDDEN}): {cast_ms:.4f} ms, "
          f"{K1_CASTS_PER_STEP} per training step: {K1_CASTS_PER_STEP * cast_ms:.4f} ms on {smi}")
     rows = {}
-    for batch, policy, pname in ((512, BF16, "bf16"), (4096, BF16, "bf16"), (4096, F32, "f32")):
+    for batch, policy, pname in ((256, BF16, "bf16"), (512, BF16, "bf16"), (768, BF16, "bf16"),
+                                 (4096, BF16, "bf16"), (4096, F32, "f32")):
         x, w1, b1, w2, b2, dy = _k1_inputs(batch, seed=2000 + batch)
         plain_saved = K1.res_block_forward_reference(x, w1, b1, w2, b2, policy)[1:]
         xs, a1, hs, a2 = K1.kernel_saved(x, *plain_saved, policy)
@@ -900,8 +976,7 @@ def phase_k1_times(smi):
             row["plain_ms"], _ = _time_ms(plain)
             row["library_ms"] = min(r[2][0] for r in runs)
             row["bound_ms"], row["bound_by"] = bound, by
-            if batch == 512:
-                rows[which] = row
+            rows[batch, pname, which] = row
             _log(f"[time] res_block_{which} {pname} B={batch} by kernel (ms per launch): "
                  f"{_kernel_breakdown(kernel)[0]}")
             _log(f"[time] res_block_{which} {pname} B={batch}: kernel {row['ms']:.4f} ms "
@@ -918,9 +993,9 @@ def phase_step_times(smi):
     trainers' defaults), after warm-up: device ms (CUDA events) and host ms
     per step. It runs before any other phase opens torch.profiler or
     captures a CUDA graph, so that it times the steps as the trainers run
-    them. -> ({stage: (device ms, host ms)}, what phase_step_profile needs
-    for 3a)."""
-    rows, profile_3a = {}, None
+    them. -> ({stage: (device ms, host ms)}, {stage: what phase_step_profile
+    needs} for 3a and stage 4)."""
+    rows, profiles = {}, {}
     for name in STAGE_NAMES:
         stage = _stage(name, seed=4, batch=MAIN_BATCH)
         model = stage.model.cuda()
@@ -939,16 +1014,62 @@ def phase_step_times(smi):
         _log(f"[time] {name} training step B={MAIN_BATCH}: device {step_ms:.4f} ms, host "
              f"{host_ms:.4f} ms per step, {MAIN_BATCH / max(step_ms, host_ms) * 1e3:.1f} poses/s "
              f"on {smi}")
-        if name == "3a":
-            profile_3a = (step_ms, one, (model, LifterFrozen(*frozen), state, stage.cfg, data, g))
-    return rows, profile_3a
+        if name in ("3a", "stage 4"):
+            profiles[name] = (step_ms, one, (model, frozen, state, stage.cfg, data, g))
+    return rows, profiles
 
 
-def phase_step_profile(step, smi):
-    """The 3a step's busy share and launches (torch.profiler over a few
-    steps), and a breakdown by part from the same functions, each between
-    CUDA events; after the timings that a profiler session would slow."""
-    step_ms, one, (stacked, frozen, state, cfg, data, g) = step
+def _step_parts(name: str, model, frozen, state, cfg, data, g) -> dict:
+    """Device ms of the parts of a 3a or stage-4 step, each between CUDA
+    events (the mean of 10 steps after two warm-up steps): 3a's flow
+    augmentation, or stage 4's frozen lifters; then the loss, the backward
+    and Adam."""
+    if name == "3a":
+        frozen = LifterFrozen(*frozen)
+        draws = steps.draw_step(g, MAIN_BATCH, "cuda")
+
+        def first():
+            return obj.augment_with_samples(frozen.full_flow, data, draws.eps_noise, 0.2, BF16)
+
+        def loss_fn(inp):
+            return obj.left_right_loss(model, frozen, inp, draws.u_azim, draws.eps_elev, cfg,
+                                       BF16)[0]
+    else:
+        draws = steps.draw_occlusion(g, MAIN_BATCH, "cuda", cfg.n_rot)
+
+        @torch.no_grad()
+        def first():
+            return pseudo_3d_from_lifters(*frozen, data, cfg.depth, BF16)
+
+        def loss_fn(pose_3d):
+            return occlusion_loss(model, pose_3d, draws.u_rot, None, BF16)[0]
+
+    parts = dict.fromkeys(("augment" if name == "3a" else "lifters", "loss", "backward", "adam"),
+                          0.0)
+    reps = 10
+    for rep in range(reps + 2):  # two warm-up repetitions
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        inp = first()
+        ev[1].record()
+        loss = loss_fn(inp)
+        ev[2].record()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        ev[3].record()
+        state.opt.step(grads)
+        ev[4].record()
+        torch.cuda.synchronize()
+        if rep >= 2:
+            for i, k in enumerate(parts):
+                parts[k] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return parts
+
+
+def phase_step_profile(name: str, step, smi):
+    """A step's busy share and launches (torch.profiler over a few steps),
+    and a breakdown by part from the same functions, each between CUDA
+    events; after the timings that a profiler session would slow."""
+    step_ms, one, parts_args = step
     n_prof = 5
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
@@ -960,27 +1081,8 @@ def phase_step_profile(step, smi):
     launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel",
                                                          "cudaLaunchCooperativeKernel",
                                                          "cudaLaunchKernelExC"))
-    # where a step's device time goes: the same pieces, each between events
-    draws = steps.draw_step(g, MAIN_BATCH, "cuda")
-    parts = {"augment": 0.0, "loss": 0.0, "backward": 0.0, "adam": 0.0}
-    reps = 10
-    for rep in range(reps + 2):  # two warm-up repetitions
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        inp = obj.augment_with_samples(frozen.full_flow, data, draws.eps_noise, 0.2, BF16)
-        ev[1].record()
-        loss, _ = obj.left_right_loss(stacked, frozen, inp, draws.u_azim, draws.eps_elev, cfg,
-                                      BF16)
-        ev[2].record()
-        grads = torch.autograd.grad(loss, list(stacked.parameters()))
-        ev[3].record()
-        state.opt.step(grads)
-        ev[4].record()
-        torch.cuda.synchronize()
-        if rep >= 2:
-            for i, k in enumerate(parts):
-                parts[k] += ev[i].elapsed_time(ev[i + 1]) / reps
-    _log(f"[time] 3a training step B={MAIN_BATCH}: kernels busy {kernel_ms:.4f} ms per step "
+    parts = _step_parts(name, *parts_args)
+    _log(f"[time] {name} training step B={MAIN_BATCH}: kernels busy {kernel_ms:.4f} ms per step "
          f"({kernel_ms / step_ms:.1%} of the step's {step_ms:.4f} ms; profiled), "
          f"{launches / n_prof:.0f} kernel launches per step; parts between events (ms) "
          f"{', '.join(f'{k} {v:.4f}' for k, v in parts.items())} on {smi}")
@@ -995,29 +1097,44 @@ def main() -> int:
          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
          f"x{torch.cuda.device_count()}")
 
-    phase_build()
+    t_start = time.perf_counter()
+    _timed("build", phase_build)
     g = torch.Generator().manual_seed(0)
     stacked = StackedLifter(Lifter(11, HIDDEN, generator=g),
                             Lifter(11, HIDDEN, generator=g)).cuda()
     prep = K2.prepare_fused_weights(stacked)
-    k2_err = phase_kernel_vs_plain(prep)
-    phase_k1_split_and_cache()
-    k1_err = phase_k1_vs_plain()
+    k2_err = _timed("K2 vs plain", phase_kernel_vs_plain, prep)
+    _timed("K1 split and cache", phase_k1_split_and_cache)
+    k1_err = _timed("K1 vs plain", phase_k1_vs_plain)
     for name in STAGE_NAMES:
-        phase_step_card_vs_cpu(name)
-    counts, _ = phase_main_path(stacked)
+        _timed(f"step card vs CPU {name}", phase_step_card_vs_cpu, name)
+    counts, _ = _timed("main path", phase_main_path, stacked)
     smi = _smi()
     _log(smi)
-    _, profile_3a = phase_step_times(smi)
-    k2_rows = phase_times(prep, smi)
-    phase_step_profile(profile_3a, smi)
-    k1_rows, cast_ms = phase_k1_times(smi)
-    phase_k2_kernels(prep, smi)
-    k1_ms = (K1_FWD_PER_STEP * k1_rows["forward"]["ms"]
-             + K1_BWD_PER_STEP * k1_rows["backward"]["ms"] + K1_CASTS_PER_STEP * cast_ms)
-    _log(f"[time] K1 in a training step at B=512: {K1_FWD_PER_STEP} forward + "
-         f"{K1_BWD_PER_STEP} backward calls + {K1_CASTS_PER_STEP} weight casts = {k1_ms:.4f} ms "
+    _, profiles = _timed("step times", phase_step_times, smi)
+    k2_rows = _timed("K2 times", phase_times, prep, smi)
+    for name, step in profiles.items():
+        _timed(f"step profile {name}", phase_step_profile, name, step, smi)
+    k1_rows, cast_ms = _timed("K1 times", phase_k1_times, smi)
+    _timed("K2 kernels", phase_k2_kernels, prep, smi)
+    _log(f"[phase] host seconds, {time.perf_counter() - t_start:.1f} s in all: "
+         + ", ".join(f"{k} {v:.2f}" for k, v in SECONDS.items()))
+
+    def k1_ms(batch, which):
+        return k1_rows[batch, "bf16", which]["ms"]
+
+    k1_3a = (K1_FWD_PER_STEP * k1_ms(512, "forward") + K1_BWD_PER_STEP * k1_ms(512, "backward")
+             + K1_CASTS_PER_STEP * cast_ms)
+    _log(f"[time] K1 in a 3a training step at B=512: {K1_FWD_PER_STEP} forward + "
+         f"{K1_BWD_PER_STEP} backward calls + {K1_CASTS_PER_STEP} weight casts = {k1_3a:.4f} ms "
          f"on {smi}")
+    n_lifter = K1_STAGE4[0] - K1_STAGE4[1]
+    k1_4 = (n_lifter * k1_ms(256, "forward") + K1_STAGE4[1] * (k1_ms(768, "forward")
+                                                               + k1_ms(768, "backward"))
+            + K1_STAGE4_CASTS[1] * cast_ms)
+    _log(f"[time] K1 in a stage-4 training step: {n_lifter} forward calls at B=256 + "
+         f"{K1_STAGE4[1]} forward and {K1_STAGE4[1]} backward at B=768 + {K1_STAGE4_CASTS[1]} "
+         f"weight casts = {k1_4:.4f} ms on {smi}")
 
     src = "links_tpu_torch/ops/csrc/"
     kernels = [
@@ -1026,10 +1143,10 @@ def main() -> int:
          **k2_rows[MAIN_BATCH]},
         {"name": "res_block_forward", "route": "cuda", "source": src + "resblock.cu",
          "replaces": "links_tpu/experimental/pallas_resblock.py:60", "max_abs_err": k1_err[0],
-         **k1_rows["forward"]},
+         **k1_rows[512, "bf16", "forward"]},
         {"name": "res_block_backward", "route": "cuda", "source": src + "resblock.cu",
          "replaces": "links_tpu/experimental/pallas_resblock.py:69", "max_abs_err": k1_err[1],
-         **k1_rows["backward"]},
+         **k1_rows[512, "bf16", "backward"]},
     ]
     for k in kernels:  # launches: the main paths' total, and path by path
         by_path = {path: c[k["name"]] for path, c in counts.items() if c[k["name"]]}

@@ -1,13 +1,15 @@
-"""Lifter and flow weights in and out of the port (counterpart of
-links_tpu/ckpt/torch_io.py).
+"""Lifter, completer and flow weights in and out of the port (counterpart
+of links_tpu/ckpt/torch_io.py).
 
-Lifters use the reference-layout ``.pt`` files: ``{upscale, downscale,
-angles}.{weight, bias}`` and ``res_*.{l1, l2}.{weight, bias}`` with torch's
-(out, in) weights, plus ``res_*.{bn1, bn2}.*`` LayerNorm tensors that the
-reference always constructs and no path uses (present, ignored). Flows use
-FrEIA's ``SequenceINN`` layout (flows/coupling.py). Orbax artifacts need jax
-and are not read here; the JAX trainers write ``.pt`` files with
-``--save-pt``.
+Lifters and completers use the reference-layout ``.pt`` files: ``{upscale,
+downscale, angles}.{weight, bias}`` and ``res_*.{l1, l2}.{weight, bias}``
+with torch's (out, in) weights, plus ``res_*.{bn1, bn2}.*`` LayerNorm
+tensors that the reference always constructs and no path uses (written at
+their defaults, ignored on load). A completer file also holds the
+reference's constructed-but-unused ``res_common`` block (written as zeros,
+ignored on load). Flows use FrEIA's ``SequenceINN`` layout
+(flows/coupling.py). Orbax artifacts need jax and are not read here; the JAX
+trainers write ``.pt`` files with ``--save-pt``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from links_tpu_torch.flows.coupling import Flow
+from links_tpu_torch.models.completers import BLOCKS, Completer
 from links_tpu_torch.models.lifters import CHAIN, Lifter
 
 
@@ -23,33 +26,69 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))
 
 
-def lifter_params_from_jax(tree) -> dict[str, torch.Tensor]:
-    """A links_tpu lifter pytree as numpy (``{"upscale": {"w": (in, out),
-    "b": (out,)}, "res_common": {"l1": {...}, "l2": {...}}, ...}``) -> the
-    port's ``Lifter`` state dict."""
+def _params_from_jax(tree, linears, blocks) -> dict[str, torch.Tensor]:
+    """A links_tpu pytree as numpy (``{"upscale": {"w": (in, out), "b":
+    (out,)}, "res_pose1": {"l1": {...}, "l2": {...}}, ...}``) -> the port's
+    state dict of those linears and residual blocks."""
     def linear(prefix, p):
         return {f"{prefix}.weight": torch.from_numpy(np.asarray(p["w"], np.float32).T.copy()),
                 f"{prefix}.bias": torch.from_numpy(np.asarray(p["b"], np.float32).copy())}
 
     sd = {}
-    for name in ("upscale", "downscale", "angles"):
+    for name in linears:
         sd.update(linear(name, tree[name]))
-    for blk in CHAIN:
+    for blk in blocks:
         for l in ("l1", "l2"):
             sd.update(linear(f"{blk}.{l}", tree[blk][l]))
     return sd
 
 
+def lifter_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """A links_tpu lifter pytree as numpy -> the port's ``Lifter`` state dict."""
+    return _params_from_jax(tree, ("upscale", "downscale", "angles"), CHAIN)
+
+
+def completer_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """A links_tpu completer pytree as numpy -> the port's ``Completer``
+    state dict."""
+    return _params_from_jax(tree, ("upscale", "downscale"), BLOCKS)
+
+
+def _module_from_state_dict(make, state_dict: dict, unused: tuple, device):
+    """``make(hidden, in_dim, out_dim)`` built on the meta device and loaded
+    from ``state_dict`` without its keys that contain any of ``unused``;
+    every other key must match."""
+    sd = {k: v for k, v in state_dict.items() if not any(u in k for u in unused)}
+    hidden, in_dim = sd["upscale.weight"].shape
+    with torch.device("meta"):
+        module = make(hidden, in_dim, sd["downscale.weight"].shape[0])
+    module.load_state_dict({k: torch.as_tensor(v, dtype=torch.float32)
+                            for k, v in sd.items()}, strict=True, assign=True)
+    return module.to(device)
+
+
+def _save_pt(module, path, blocks, zero_blocks=()) -> None:
+    """Write ``module``'s state dict as a reference-layout ``.pt``, with the
+    default LayerNorm tensors of ``blocks`` and ``zero_blocks``, and the
+    weights of ``zero_blocks`` (constructed, unused) as zeros."""
+    sd = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+    hidden = module.upscale.weight.shape[0]
+    for blk in zero_blocks:
+        for l in ("l1", "l2"):
+            sd[f"{blk}.{l}.weight"] = torch.zeros(hidden, hidden)
+            sd[f"{blk}.{l}.bias"] = torch.zeros(hidden)
+    for blk in (*blocks, *zero_blocks):
+        for bn in ("bn1", "bn2"):
+            sd[f"{blk}.{bn}.weight"] = torch.ones(hidden)
+            sd[f"{blk}.{bn}.bias"] = torch.zeros(hidden)
+    torch.save(sd, path)
+
+
 def lifter_from_state_dict(state_dict: dict, device="cpu") -> Lifter:
     """Build a ``Lifter`` of the state dict's width; ``bn*`` keys are
     ignored, every other key must match."""
-    sd = {k: v for k, v in state_dict.items() if ".bn" not in k}
-    hidden, in_dim = sd["upscale.weight"].shape
-    with torch.device("meta"):
-        lifter = Lifter(in_dim // 2, hidden)
-    lifter.load_state_dict({k: torch.as_tensor(v, dtype=torch.float32)
-                            for k, v in sd.items()}, strict=True, assign=True)
-    return lifter.to(device)
+    return _module_from_state_dict(lambda hidden, in_dim, _: Lifter(in_dim // 2, hidden),
+                                   state_dict, (".bn",), device)
 
 
 def load_lifter_pt(path, device="cpu") -> Lifter:
@@ -61,13 +100,28 @@ def load_lifter_pt(path, device="cpu") -> Lifter:
 def save_lifter_pt(lifter: Lifter, path) -> None:
     """Write ``lifter`` as a reference-layout ``.pt``, with the default
     LayerNorm tensors the reference's loaders expect."""
-    sd = {k: v.detach().cpu().clone() for k, v in lifter.state_dict().items()}
-    hidden = lifter.upscale.weight.shape[0]
-    for blk in CHAIN:
-        for bn in ("bn1", "bn2"):
-            sd[f"{blk}.{bn}.weight"] = torch.ones(hidden)
-            sd[f"{blk}.{bn}.bias"] = torch.zeros(hidden)
-    torch.save(sd, path)
+    _save_pt(lifter, path, CHAIN)
+
+
+def completer_from_state_dict(state_dict: dict, device="cpu") -> Completer:
+    """Build a ``Completer`` of the state dict's width and part sizes; the
+    ``bn*`` and ``res_common`` keys are ignored, every other key must match."""
+    return _module_from_state_dict(
+        lambda hidden, in_dim, out_dim: Completer(in_dim // 3, out_dim // 3, hidden),
+        state_dict, (".bn", "res_common."), device)
+
+
+def load_completer_pt(path, device="cpu") -> Completer:
+    """A reference-layout ``.pt`` completer checkpoint -> ``Completer``."""
+    return completer_from_state_dict(
+        torch.load(path, map_location="cpu", weights_only=True), device)
+
+
+def save_completer_pt(completer: Completer, path) -> None:
+    """Write ``completer`` as a reference-layout ``.pt``: the keys of the JAX
+    package's ``completer_to_torch``, with the zero ``res_common`` block and
+    the default LayerNorm tensors."""
+    _save_pt(completer, path, BLOCKS, zero_blocks=("res_common",))
 
 
 def flow_params_from_jax(params, perm) -> dict[str, torch.Tensor]:

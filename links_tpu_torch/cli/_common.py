@@ -1,5 +1,5 @@
 """Shared CLI plumbing of the port: the data, checkpoint and training flags
-the serving lift and the trainers of stages 1, 2, 3a and 3b need (the
+the serving lift and the trainers of stages 1, 2, 3a, 3b and 4 need (the
 subset of links_tpu/cli/_common.py they use)."""
 
 from __future__ import annotations
@@ -40,6 +40,9 @@ FLOW_TORSO = "flow_torso"
 LR_LIFTERS = ("left_side_lifter_final.pt", "right_side_lifter_final.pt")
 LR_LIFTERS_REFERENCE = ("left_lifter.pt", "right_lifter.pt")
 LEG_TORSO_LIFTERS = ("leg_lifter.pt", "torso_lifter.pt")
+# Stage 4's completers: <model-dir>/occlusion_model_weights/<name>_estimator.pt
+# (the reference's names), one per completer of models.completers.COMPLETER_SPECS
+COMPLETERS_DIR = "occlusion_model_weights"
 # seed of the lifter trainers' unsupervised validation draws: fixed and
 # independent of --seed, so the criterion compares across epochs and seeds
 VAL_SEED = 20_000
@@ -123,10 +126,11 @@ def add_lifter_flags(parser: argparse.ArgumentParser):
 
 
 # Flags of the JAX trainers that later slices port: accepted, then refused.
-# The lifter trainers also refuse --save-every, which in the JAX package
-# paces only their run checkpoints (not yet ported).
+# The lifter and completer trainers also refuse --save-every, which in the
+# JAX package paces only their run checkpoints, and --select-by, which picks
+# their best checkpoint (neither ported yet).
 UNPORTED_TRAIN_FLAGS = ("resume", "packed_data", "distributed", "num_devices", "wandb")
-UNPORTED_LIFTER_FLAGS = UNPORTED_TRAIN_FLAGS + ("save_every",)
+UNPORTED_LIFTER_FLAGS = UNPORTED_TRAIN_FLAGS + ("save_every", "select_by")
 
 
 def add_train_flags(parser: argparse.ArgumentParser, bf16_opt_state_default: bool = False,
@@ -161,7 +165,8 @@ def add_train_flags(parser: argparse.ArgumentParser, bf16_opt_state_default: boo
     parser.add_argument("--wandb", action="store_true", help="(not yet ported)")
     parser.add_argument("--save-every", type=int, default=None,
                         help="flow trainers: write the flows every N epochs (default 1; "
-                             "always the final epoch); lifter trainers: not yet ported")
+                             "always the final epoch); lifter and completer trainers: not "
+                             "yet ported")
     return parser
 
 
@@ -184,8 +189,8 @@ def resolve_cfg(args, cfg):
         kw["batch_size"] = args.batch_size
     if args.f32:
         kw["bf16"] = False
-    if args.nll_cap is not None:
-        kw["nll_cap"] = args.nll_cap
+    if args.nll_cap is not None and any(f.name == "nll_cap" for f in dataclasses.fields(cfg)):
+        kw["nll_cap"] = args.nll_cap  # ignored by a stage with no flow term (stage 4)
     opt_kw = {"bf16_moments": bool(args.bf16_opt_state)}
     if args.clip_grad is not None:
         opt_kw["clip_grad_norm"] = args.clip_grad
@@ -301,6 +306,38 @@ def load_leg_torso(args, device):
     if missing:
         raise FileNotFoundError(f"no leg/torso lifter weights: expected {missing}")
     return tuple(load_lifter_pt(p, device) for p in paths)
+
+
+def load_all_lifters(args, device) -> dict:
+    """The four frozen lifters the occlusion paths read, as the ``{'left',
+    'right', 'legs', 'torso'}`` ``Lifter``s on ``device``: the left/right
+    pair as ``load_stacked_lr`` finds it, the legs and torso as
+    ``load_leg_torso``."""
+    stacked = load_stacked_lr(args, device)
+    legs, torso = load_leg_torso(args, device)
+    return {"left": stacked.left, "right": stacked.right, "legs": legs, "torso": torso}
+
+
+def load_completers(args, device):
+    """The eight completers from ``<model-dir>/occlusion_model_weights/`` (the
+    stage-4 trainers write them, the JAX one with --save-pt) as a
+    ``ModuleDict`` keyed by name, in ``COMPLETER_SPECS`` order, on ``device``;
+    each completer's width is its file's."""
+    from links_tpu_torch.ckpt.torch_io import load_completer_pt
+    from links_tpu_torch.models.completers import COMPLETER_SPECS
+
+    paths = {name: completer_path(args, name) for name in COMPLETER_SPECS}
+    missing = [str(p) for p in paths.values() if not p.exists()]
+    if missing:
+        raise FileNotFoundError(f"no completer weights: expected {missing}; train stage 4 "
+                                f"first (links_tpu_torch.cli.train_occlusion_models)")
+    return torch.nn.ModuleDict({name: load_completer_pt(p, device) for name, p in paths.items()})
+
+
+def completer_path(args, name: str) -> Path:
+    """Where the completer ``name`` lives: ``<model-dir>/occlusion_model_weights/
+    <name>_estimator.pt``."""
+    return Path(args.model_dir) / COMPLETERS_DIR / f"{name}_estimator.pt"
 
 
 def resolve_device(name: str) -> torch.device:

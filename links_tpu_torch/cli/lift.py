@@ -8,6 +8,11 @@ Inputs:
 ``--fused`` runs both side lifters as one launch of the hand-written CUDA
 kernel (ops/fused_infer.py; bf16 multiplies, chunks of at most 512 poses).
 
+``--scenario`` serves the occlusion story end to end: the scenario's 2D
+keypoints are zeroed, the pose is lifted by the four lifters (left, right,
+legs, torso) and the missing 3D part is infilled by the scenario's stage-4
+completer (``<model-dir>/occlusion_model_weights/``).
+
 Output: ``--out`` .npz with ``poses_3d`` (N, 3, 17) and the ``poses_2d``
 echo, plus one JSON summary line on stdout (count, wall time, poses/sec).
 
@@ -28,6 +33,7 @@ import torch
 
 from links_tpu_torch.cli import _common as C
 from links_tpu_torch.core.nn import BF16, F32
+from links_tpu_torch.objectives.occlusion import DROPOUT_SCENARIO_JOINTS
 
 
 def _load_raw_2d(path: str) -> np.ndarray:
@@ -60,8 +66,10 @@ def add_serving_flags(parser):
                         default="left_right")
     parser.add_argument("--choice", choices=["left", "right"], default="right")
     parser.add_argument("--depth", type=float, default=10.0)
-    parser.add_argument("--scenario", default=None,
-                        help="occluded-limb completer infill (not yet ported)")
+    parser.add_argument("--scenario", default=None, choices=sorted(DROPOUT_SCENARIO_JOINTS),
+                        help="occluded-limb scenario: zero its 2D keypoints, lift the visible "
+                             "part and infill the missing 3D joints with the stage-4 "
+                             "completers")
     parser.add_argument("--fused", action="store_true",
                         help="left_right mode: run both side lifters as one "
                              "launch of the fused CUDA kernel (bf16 multiplies, "
@@ -75,16 +83,23 @@ def add_serving_flags(parser):
 
 def build_serving_fn(args, batch: int, device):
     """The serving forward the flags describe and its per-call batch cap."""
+    from links_tpu_torch.objectives import occlusion as occ
     from links_tpu_torch.objectives.lifter import lift_left_right_eval, lift_leg_torso_eval
 
-    if args.scenario or args.quant:
-        raise SystemExit(
-            "--scenario and --quant are not yet ported to links_tpu_torch; "
-            "serve them with links_tpu.cli.lift")
-    if args.fused and args.mode != "left_right":
+    if args.quant:
+        raise SystemExit("--quant is not yet ported to links_tpu_torch; "
+                         "serve it with links_tpu.cli.lift")
+    if args.fused and (args.scenario or args.mode != "left_right"):
         raise SystemExit("--fused covers the plain left_right forward only; "
-                         "it cannot serve --mode leg_torso")
+                         "it cannot serve --scenario infill or --mode leg_torso")
     policy = BF16 if args.policy == "bf16" else F32
+    if args.scenario:
+        lifters = C.load_all_lifters(args, device)
+        completers = C.load_completers(args, device)
+        joints = DROPOUT_SCENARIO_JOINTS[args.scenario]
+        return (lambda p2d: occ.occlusion_validation_poses(
+            completers, lifters, occ.drop_keypoints(p2d, joints), args.depth, policy,
+            scenarios=(args.scenario,))[args.scenario], batch)
     if args.mode == "leg_torso":
         legs, torso = C.load_leg_torso(args, device)
         return (lambda p2d: lift_leg_torso_eval(legs, torso, p2d, args.depth, policy),

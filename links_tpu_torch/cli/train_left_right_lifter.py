@@ -65,7 +65,7 @@ def main(argv=None):
     C.add_common_flags(parser)
     C.add_train_flags(parser, bf16_opt_state_default=True, nll_cap_default=500.0)
     args = parser.parse_args(argv)
-    C.refuse_unported(args, C.UNPORTED_LIFTER_FLAGS + ("attention", "select_by", "flip_guard"))
+    C.refuse_unported(args, C.UNPORTED_LIFTER_FLAGS + ("attention", "flip_guard"))
     device = C.resolve_device(args.device)
 
     cfg = C.resolve_cfg(args, LifterTrainConfig(

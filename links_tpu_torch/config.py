@@ -1,6 +1,6 @@
-"""Stage configurations of the port (counterpart of the optimizer, flow and
-stage-3 configurations in links_tpu/config.py; same defaults). The CLIs
-override some defaults (cli/_common.py:add_train_flags). The JAX package's
+"""Stage configurations of the port (counterpart of the optimizer, flow,
+stage-3 and stage-4 configurations in links_tpu/config.py; same defaults).
+The CLIs override some defaults (cli/_common.py:add_train_flags). The JAX package's
 ``use_elevation`` is not carried over: no entry point turns it off, and the
 port always draws the elevation from the predicted angles' statistics."""
 
@@ -63,5 +63,22 @@ class LifterTrainConfig:
     weight_likeli: float = 1.0  # --likelihood
     noise_factor: float = 0.2
     nll_cap: float = 0.0  # soft cap of the part-flow NLL (flows.soft_cap_nll); 0 disables
+    optim: OptimConfig = OptimConfig()
+    bf16: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class OcclusionTrainConfig:
+    """Stage 4, the eight completers (the reference's
+    train_occlusion_models.py:51-63)."""
+
+    batch_size: int = 256
+    n_epochs: int = 10
+    depth: float = 10.0  # --translation
+    # extra cumulative random y-rotations of the pseudo-3D per step (the
+    # reference's 2) and the Gaussian jitter of the completers' inputs only
+    # (the reference has none)
+    n_rot: int = 2
+    input_noise: float = 0.0
     optim: OptimConfig = OptimConfig()
     bf16: bool = True

@@ -101,6 +101,18 @@ def split_data_left_right(data):
     return _split(data, 2, LEFT_IDX, RIGHT_IDX)
 
 
+def split_data_left_right_3d(data):
+    """(B, 51) -> two (B, 33): (the left split, the right split).
+
+    The reference reshapes to (-1, 2, 17) even for 3D input, so a (B, 51)
+    batch yields 1.5 B rows of interleaved coordinate pairs. Its call sites
+    only ever pass (B, 3, 17) tensors whose reshape(-1, 2, 17) is
+    re-flattened consistently, so this implements the intended semantics, a
+    joint gather on (B, 3, 17), which gives identical values at every call
+    site of the reference (as the JAX package does)."""
+    return _split(data, 3, LEFT_IDX, RIGHT_IDX)
+
+
 def split_data_legs_torso(data):
     """(B, 34) -> (legs (B, 14), torso (B, 20))."""
     return _split(data, 2, LEG_IDX, TORSO_IDX)
@@ -117,6 +129,29 @@ def _combine_lr(left_split, right_split, choice, ncoords):
 def combine_left_right_pred_1d(left_split, right_split, choice):
     """Merge (B, 11) + (B, 11) per-joint depths -> (B, 1, 17)."""
     return _combine_lr(left_split, right_split, choice, 1)
+
+
+def combine_left_right_occluded_3d(occluded_part, visible_part, part_occluded: str):
+    """Merge a predicted occluded side (B, 3, 6) into the visible side
+    (B, 3, 11) -> (B, 3, 17); ``part_occluded`` 'right' or 'left'."""
+    cat = torch.cat([visible_part.reshape(-1, 3, 11), occluded_part.reshape(-1, 3, 6)], dim=2)
+    perm = _OCCLUDED_COMBINE_RIGHT if part_occluded == "right" else _OCCLUDED_COMBINE_LEFT
+    return cat[:, :, _on(perm, cat)]
+
+
+# where combine_pose_and_limb inserts a 3-joint limb into a 14-joint pose
+_LIMB_AT = {"rl": 1, "ll": 4, "la": 11, "ra": 14}
+
+
+def combine_pose_and_limb(pose, limb, which_limb: str):
+    """Insert a 3-joint limb (B, 9) into a 14-joint pose (B, 42) -> (B, 51);
+    ``which_limb`` 'll', 'rl', 'la' or 'ra' (left/right leg/arm)."""
+    if which_limb not in _LIMB_AT:
+        raise ValueError(f"unknown limb {which_limb!r}")
+    at = _LIMB_AT[which_limb]
+    pose = pose.reshape(-1, 3, 14)
+    full = torch.cat([pose[:, :, :at], limb.reshape(-1, 3, 3), pose[:, :, at:]], dim=2)
+    return full.reshape(-1, 51)
 
 
 def get_bone_lengths_all(poses):

@@ -1,1 +1,1 @@
-"""Lifter models."""
+"""Lifter and completer models."""

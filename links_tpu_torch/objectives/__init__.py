@@ -1,1 +1,1 @@
-"""Lifting objectives (the eval forwards of the serving slice)."""
+"""The stages' objectives and the eval forwards of the serving lift."""

@@ -137,13 +137,13 @@ def augment_with_samples(full_flow: flows.Flow, poses_2d: torch.Tensor, eps: tor
     return torch.cat([poses_2d, samples], dim=0)
 
 
-def _pin_root(pred: torch.Tensor) -> torch.Tensor:
+def pin_root(pred: torch.Tensor) -> torch.Tensor:
     """(N, 17) depth offsets with the root's set to 0."""
     return torch.cat([torch.zeros_like(pred[:, :1]), pred[:, 1:]], dim=1)
 
 
 def _root_pinned(left_pred, right_pred, choice: str, n: int) -> torch.Tensor:
-    return _pin_root(combine_left_right_pred_1d(left_pred, right_pred, choice).reshape(n, 17))
+    return pin_root(combine_left_right_pred_1d(left_pred, right_pred, choice).reshape(n, 17))
 
 
 def left_right_loss(stacked, frozen: LifterFrozen, inp_poses: torch.Tensor,
@@ -235,7 +235,7 @@ def leg_torso_loss(legs, torso, frozen: LifterFrozen, inp_poses: torch.Tensor,
     legs_pred, legs_ang = legs(inp_legs, policy)
     torso_pred, torso_ang = torso(inp_torso, policy)
     props = (legs_ang + torso_ang) / 2.0
-    pred = _pin_root(torch.cat([legs_pred, torso_pred], dim=1))
+    pred = pin_root(torch.cat([legs_pred, torso_pred], dim=1))
 
     R = sample_rotation(props, u_azim, eps_elev)
     pred_3d = reconstruct_3d(inp_poses, torch.clamp(pred + cfg.depth, min=1.0))
@@ -250,7 +250,7 @@ def leg_torso_loss(legs, torso, frozen: LifterFrozen, inp_poses: torch.Tensor,
     # re-lift the rotated view; as in 3a, no loss reads its angles
     legs_pred_rot, _ = legs(leg_rot, policy)
     torso_pred_rot, _ = torso(torso_rot, policy)
-    pred_rot = _pin_root(torch.cat([legs_pred_rot, torso_pred_rot], dim=1))
+    pred_rot = pin_root(torch.cat([legs_pred_rot, torso_pred_rot], dim=1))
     pred_3d_rot = reconstruct_3d(rot_2d, torch.clamp(pred_rot + cfg.depth, min=1.0))
 
     L3d = torch.linalg.vector_norm(rot_poses - pred_3d_rot.reshape(n, 51), dim=1).mean()

@@ -1,1 +1,1 @@
-"""Training: the optimizer, the stage-3a step and the epoch loop."""
+"""Training: the optimizer, the stages' steps and the epoch loop."""

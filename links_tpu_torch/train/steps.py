@@ -1,13 +1,14 @@
-"""The training steps of stages 1, 2, 3a and 3b (counterpart of
+"""The training steps of stages 1, 2, 3a, 3b and 4 (counterpart of
 links_tpu/train/steps.py): each step computes its stage's loss (with the
 sample augmentation inside it), the gradient of every parameter of the
 trained model, and the Adam update.
 
 The trained model is a ``Flow`` (stage 1), a ``PartFlows`` (stage 2), a
-``StackedLifter`` (3a) or a ``LegTorsoLifter`` (3b); its ``parameters()``
-order is the order of the gradients and of ``Adam``'s state. A step takes
-its random numbers as tensors: one (B, 34) normal for the flow stages
-(``draw_noise``), a ``StepDraws`` for the lifter stages (``draw_step``).
+``StackedLifter`` (3a), a ``LegTorsoLifter`` (3b) or a ``Completers`` (4);
+its ``parameters()`` order is the order of the gradients and of ``Adam``'s
+state. A step takes its random numbers as tensors: one (B, 34) normal for
+the flow stages (``draw_noise``), a ``StepDraws`` for the lifter stages
+(``draw_step``), an ``OcclusionDraws`` for stage 4 (``draw_occlusion``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from links_tpu_torch import flows
 from links_tpu_torch.core.nn import BF16, F32
 from links_tpu_torch.objectives import flow_nll
 from links_tpu_torch.objectives import lifter as lifter_obj
+from links_tpu_torch.objectives import occlusion as occ_obj
 from links_tpu_torch.train.optim import Adam
 
 
@@ -52,6 +54,25 @@ def draw_noise(generator: torch.Generator, batch: int, device) -> torch.Tensor:
     """One flow step's draw from ``generator``: the (B, 34) latent noise of
     the samples."""
     return torch.randn(batch, 34, generator=generator, device=device)
+
+
+class OcclusionDraws(NamedTuple):
+    """The random numbers of one stage-4 step: the rotations' uniforms
+    (n_rot, B, 1), and the input noise ((n_rot + 1) B, 3, 17), or None
+    without it."""
+
+    u_rot: torch.Tensor
+    eps_input: torch.Tensor | None
+
+
+def draw_occlusion(generator: torch.Generator, batch: int, device, n_rot: int = 2,
+                   input_noise: float = 0.0) -> OcclusionDraws:
+    """One stage-4 step's draws from ``generator`` (on ``device``); the input
+    noise only when ``input_noise`` is set."""
+    u_rot = torch.rand(n_rot, batch, 1, generator=generator, device=device)
+    eps = (torch.randn((n_rot + 1) * batch, 3, 17, generator=generator, device=device)
+           if input_noise else None)
+    return OcclusionDraws(u_rot, eps)
 
 
 def _policy(cfg):
@@ -147,3 +168,22 @@ def build_leg_torso_grads(frozen: lifter_obj.LifterFrozen, cfg,
 def build_leg_torso_step(frozen: lifter_obj.LifterFrozen, cfg,
                          bone_relations_mean=None) -> Callable:
     return _step(build_leg_torso_grads(frozen, cfg, bone_relations_mean))
+
+
+def build_occlusion_grads(legs, torso, cfg) -> Callable:
+    """Stage 4: the eight completers (a ``Completers``) against the
+    pseudo-3D of the frozen ``legs`` and ``torso`` ``Lifter``s (computed
+    without a gradient). ``cfg``: an ``OcclusionTrainConfig``."""
+    policy = _policy(cfg)
+
+    def loss_fn(model, batch: torch.Tensor, draws: OcclusionDraws):
+        with torch.no_grad():
+            pose_3d = occ_obj.pseudo_3d_from_lifters(legs, torso, batch, cfg.depth, policy)
+        return occ_obj.occlusion_loss(model, pose_3d, draws.u_rot, draws.eps_input, policy,
+                                      cfg.input_noise)
+
+    return _grads(loss_fn)
+
+
+def build_occlusion_step(legs, torso, cfg) -> Callable:
+    return _step(build_occlusion_grads(legs, torso, cfg))

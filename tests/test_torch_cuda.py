@@ -9,10 +9,14 @@ machine without jax, where tests/conftest.py (which imports jax) is skipped:
 import pytest
 import torch
 
+from links_tpu_torch.config import OcclusionTrainConfig
 from links_tpu_torch.core.nn import BF16, F32
+from links_tpu_torch.models.completers import Completers
 from links_tpu_torch.models.lifters import Lifter, StackedLifter
 from links_tpu_torch.ops import fused_infer as K2
 from links_tpu_torch.ops import resblock as K1
+from links_tpu_torch.train.optim import Adam
+from links_tpu_torch.train.steps import TrainState, build_occlusion_step, draw_occlusion
 
 # Kernel vs plain version: both sum bf16 x bf16 products in f32 in different
 # orders, and a last-bit difference can flip the bf16 rounding of the next
@@ -253,3 +257,31 @@ def test_res_block_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 64"):
         K1.res_block_forward(x[:, :100].contiguous(), w1[:100, :100].contiguous(), b1[:100],
                              w2[:100, :100].contiguous(), b2[:100], BF16)
+
+
+@pytest.mark.cuda
+def test_occlusion_step_casts_the_frozen_lifters_once(cuda):
+    """A stage-4 step runs 38 forward and 24 backward K1 calls; the frozen
+    lifters' 28 weight planes are cast on the first step only, the
+    completers' 48 after every update."""
+    g = torch.Generator().manual_seed(9)
+    legs, torso = (Lifter(j, 128, generator=g).requires_grad_(False).to(cuda) for j in (7, 10))
+    model = Completers(128, generator=g).to(cuda)
+    cfg = OcclusionTrainConfig(batch_size=16)
+    state = TrainState(model, Adam(model.parameters(), cfg.optim, steps_per_epoch=1))
+    step = build_occlusion_step(legs, torso, cfg)
+    data = (torch.randn(16, 34, generator=g) * 0.1).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def counts():
+        return (K1.weight_plane.casts, K1.res_block_forward.launches,
+                K1.res_block_backward.launches)
+
+    seen = []
+    for _ in range(2):
+        before = counts()
+        aux = step(state, data, draw_occlusion(gen, 16, cuda))
+        torch.cuda.synchronize()
+        seen.append(tuple(a - b for a, b in zip(counts(), before)))
+        assert torch.isfinite(aux["loss"])
+    assert seen == [(76, 38, 24), (48, 38, 24)]

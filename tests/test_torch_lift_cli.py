@@ -80,7 +80,7 @@ def test_raw_2d_and_limit(workspace, jax_outputs, tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--scenario", "ll"], "not yet ported"),
+    (["--scenario", "ll", "--quant", "int8"], "not yet ported"),
     (["--quant", "int8"], "not yet ported"),
     (["--fused", "--mode", "leg_torso"], "left_right forward only"),
 ])

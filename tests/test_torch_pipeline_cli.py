@@ -1,7 +1,8 @@
 """End-to-end slice test: the port's own trainers, stage 1 -> stage 2 -> 3a ->
-3b, on the CPU on one tiny synthetic pickle with no file written by the JAX
-package, then ``links_tpu_torch.cli.lift`` serving both lifter pairs from
-``--model-dir`` alone. The JAX package reads the flows the port wrote."""
+3b -> 4, on the CPU on one tiny synthetic pickle with no file written by the
+JAX package, then ``links_tpu_torch.cli.lift`` serving both lifter pairs and
+every occlusion scenario from ``--model-dir`` alone. The JAX package reads
+the flows, lifters and completers the port wrote."""
 
 import contextlib
 import io
@@ -15,6 +16,7 @@ import torch
 
 from links_tpu import ckpt as jckpt
 from links_tpu import flows as jflows
+from links_tpu.objectives import occlusion as jocc
 from links_tpu_torch import flows as tflows
 from links_tpu_torch.ckpt.torch_io import load_flow_pt, load_lifter_pt
 from links_tpu_torch.cli import _common as C
@@ -22,8 +24,10 @@ from links_tpu_torch.cli import lift as tlift
 from links_tpu_torch.cli import train_full_pose_norm_flow as stage1
 from links_tpu_torch.cli import train_left_right_lifter as stage3a
 from links_tpu_torch.cli import train_leg_torso_lifter as stage3b
+from links_tpu_torch.cli import train_occlusion_models as stage4
 from links_tpu_torch.cli import train_part_norm_flows as stage2
 from links_tpu_torch.data.synthetic import write_synthetic_pickle
+from links_tpu_torch.models.completers import COMPLETER_SPECS
 
 BATCH = 16
 PER_SUBJECT = 8  # 5 train subjects x 8 = 40 poses: 2 steps of 16
@@ -40,7 +44,12 @@ STAGES = {
     "3b": (stage3b, ["leg_lifter.pt", "torso_lifter.pt", "leg_torso_lifter.jsonl"],
            ("loss", "leg_likeli", "torso_likeli", "pa", "mpjpe_scaled", "auc", "pck",
             "val_tilt", "val_nll", "val_unsup_loss")),
+    "4": (stage4, [f"occlusion_model_weights/{name}_estimator.pt" for name in COMPLETER_SPECS]
+          + ["occlusion_models.jsonl"],
+          ("loss", "threed_loss_torso", "pa_la", "mpjpe_scaled_right", "pa_scenario_mean",
+           "val_mse")),
 }
+SCENARIOS = ("la", "ra", "ll", "rl", "torso", "legs", "left", "right")
 # a flow read by both packages: f32 sums in another order (tests/test_torch_flows.py)
 F32_TOL = {"rtol": 1e-5, "atol": 1e-5}
 
@@ -181,3 +190,78 @@ def test_missing_full_flow_is_named(pipeline, tmp_path):
     shutil.copy(ws / "synthetic.pkl", tmp_path)
     with pytest.raises(FileNotFoundError, match="train_full_pose_norm_flow"):
         stage2.main(_args(tmp_path))
+
+
+def test_occlusion_trainer_defaults_follow_the_jax_package(pipeline):
+    """Stage 4 keeps f32 Adam moments and the reference's two rotations and
+    no input noise; its config has no NLL cap (it has no flow term)."""
+    _, runs, cfgs = pipeline
+    state, lines = runs["4"]
+    assert state.opt.mu[0].dtype == torch.float32 and not cfgs["4"].optim.bf16_moments
+    assert (cfgs["4"].n_rot, cfgs["4"].input_noise, cfgs["4"].depth) == (2, 0.0, 10.0)
+    assert not hasattr(cfgs["4"], "nll_cap")
+    assert len(list(state.model.parameters())) == len(state.opt.mu) == 8 * 16
+
+
+def test_occlusion_trainer_ignores_nll_cap(pipeline, tmp_path):
+    """--nll-cap is a flow-term flag: stage 4 accepts and ignores it, as the
+    JAX package's resolve_cfg does."""
+    ws = pipeline[0]
+    for name in ("synthetic.pkl", "left_side_lifter_final.pt", "right_side_lifter_final.pt",
+                 "leg_lifter.pt", "torso_lifter.pt"):
+        shutil.copy(ws / name, tmp_path)
+    state, lines = _run(stage4, _args(tmp_path, "--nll-cap", "100"))
+    assert state.step == 2 and np.isfinite(json.loads(lines[-1])["last"]["loss"])
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+def test_lift_scenario_serves_every_scenario_from_model_dir(pipeline, tmp_path, scenario):
+    """lift --scenario from --model-dir alone, against the JAX package's
+    scenario poses of the same dropped 2D with the lifters and completers it
+    reads from the files the port wrote (f32)."""
+    ws = pipeline[0]
+    out = tmp_path / "o.npz"
+    got = tlift.main(["--data", str(ws / "synthetic.pkl"), "--model-dir", str(ws), "--device",
+                      "cpu", "--scenario", scenario, "--out", str(out)])
+    assert got.shape == (40, 3, 17) and np.isfinite(got).all()
+    lifters = {side: jckpt.load_lifter_pt(ws / f"{side}_side_lifter_final.pt")
+               for side in ("left", "right")}
+    lifters.update(legs=jckpt.load_lifter_pt(ws / "leg_lifter.pt"),
+                   torso=jckpt.load_lifter_pt(ws / "torso_lifter.pt"))
+    completers = {name: jckpt.load_completer_pt(
+        ws / "occlusion_model_weights" / f"{name}_estimator.pt") for name in COMPLETER_SPECS}
+    with np.load(out) as z:
+        dropped = jocc.drop_keypoints(jnp.asarray(z["poses_2d"]),
+                                      jocc.DROPOUT_SCENARIO_JOINTS[scenario])
+    want = jocc.occlusion_validation_poses(completers, lifters, dropped,
+                                           scenarios=(scenario,))[scenario]
+    np.testing.assert_allclose(got.reshape(40, 51), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--select-by", "mse"], "--select-by: not yet ported"),
+    (["--use-best"], "--use-best: not yet ported"),
+    (["--resume"], "--resume: not yet ported"),
+    (["--save-every", "2"], "--save-every: not yet ported"),
+    (["--wandb"], "--wandb: not yet ported"),
+])
+def test_occlusion_trainer_refuses_unported_flags(pipeline, flags, message):
+    with pytest.raises(SystemExit, match=message):
+        stage4.main(_args(pipeline[0], *flags))
+
+
+def test_lift_refuses_fused_scenario(pipeline, tmp_path):
+    ws = pipeline[0]
+    with pytest.raises(SystemExit, match="cannot serve --scenario"):
+        tlift.main(["--data", str(ws / "synthetic.pkl"), "--model-dir", str(ws), "--device",
+                    "cpu", "--fused", "--scenario", "ll", "--out", str(tmp_path / "o.npz")])
+
+
+def test_missing_completers_are_named(pipeline, tmp_path):
+    ws = pipeline[0]
+    for name in ("left_side_lifter_final.pt", "right_side_lifter_final.pt", "leg_lifter.pt",
+                 "torso_lifter.pt"):
+        shutil.copy(ws / name, tmp_path)
+    with pytest.raises(FileNotFoundError, match="train_occlusion_models"):
+        tlift.main(["--data", str(ws / "synthetic.pkl"), "--model-dir", str(tmp_path),
+                    "--device", "cpu", "--scenario", "torso", "--out", str(tmp_path / "o.npz")])
