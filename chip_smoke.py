@@ -25,7 +25,17 @@ Phases, each fatal on failure:
      epoch each, each stage reading what the ones before wrote (no flow or
      lifter is made outside them); then ``lift --model-dir`` of the 3a
      lifters (--fused, --policy bf16), ``lift --mode leg_torso`` of the 3b
-     lifters and ``lift --scenario`` of every occlusion scenario;
+     lifters and ``lift --scenario`` of every occlusion scenario; then, on
+     the model directory the trainers wrote, each path with its counts set
+     to 0 just before it: K1's f32 forward against its plain version at
+     eval's batches; ``links_tpu_torch.cli.eval_h36m`` with every occlusion
+     evaluation (--occlusion --dropout --from-detections on the detector
+     split, f32) and with --mode leg_torso, counting K1's forward calls;
+     eval's device math on the card against the CPU on 512 test poses; the
+     3a trainer resumed after one epoch against two epochs straight (within
+     2 lr, bitwise or not reported); ``links_tpu_torch.cli.run_pipeline
+     --stages eval``; and the metrics' batched SVD at 500,000 poses, one
+     call against chunks;
   5. time each stage's training step at batch 256 and then K2, before any
      torch.profiler session (one often leaves the process slower); then the
      3a and stage-4 steps' profiles, and each kernel, its plain version, a library
@@ -47,6 +57,7 @@ import copy
 import functools
 import io
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -59,8 +70,10 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from links_tpu_torch import metrics
 from links_tpu_torch.ckpt.torch_io import load_lifter_pt, save_lifter_pt
-from links_tpu_torch.cli import lift
+from links_tpu_torch.cli import _common as C
+from links_tpu_torch.cli import eval_h36m, lift, run_pipeline
 from links_tpu_torch.cli._common import LR_LIFTERS
 from links_tpu_torch.cli import train_full_pose_norm_flow as flow1_cli
 from links_tpu_torch.cli import train_left_right_lifter as train_cli
@@ -161,6 +174,14 @@ K1_PER_STEP = {"stage 1": (0, 0, 0, 0), "stage 2": (0, 0, 0, 0),
                "3a": (K1_FWD_PER_STEP, K1_BWD_PER_STEP, K1_CASTS_PER_STEP, K1_CASTS_PER_STEP),
                "3b": (K1_FWD_PER_STEP, K1_BWD_PER_STEP, K1_CASTS_PER_STEP, K1_CASTS_PER_STEP),
                "stage 4": (*K1_STAGE4, *K1_STAGE4_CASTS)}
+# eval's device math on the card against the CPU (f32 policy) on this many
+# test poses: continuous metrics within EVAL_RTOL, counted ones within one
+# count (a distance a last bit away from a threshold may land on its other
+# side)
+EVAL_CHECK_POSES = 512
+EVAL_RTOL = 1e-4
+# pose pairs of the metrics' timing (the order of H36M's test split)
+SCALE_POSES = 500_000
 TIMED_BATCHES = (1, 256, 512)
 MAIN_BATCH = 256          # --batch-size of the main paths
 TEST_POSES = 2048         # synthetic poses per test subject (S9, S11)
@@ -677,7 +698,7 @@ def _k2_vs_plain_trained(models: Path, poses_2d: np.ndarray) -> float:
     return max(float(e.max()) for e in errs)
 
 
-def phase_main_path(stacked) -> tuple[dict, dict]:
+def phase_main_path(stacked, tmp: Path) -> tuple[dict, dict]:
     """The main paths through their entry points, each with the kernels'
     counts set to 0 just before it and read just after: the serving lift of
     seeded lifters (K2's path, and K1's forward under --policy); then the
@@ -685,96 +706,324 @@ def phase_main_path(stacked) -> tuple[dict, dict]:
     reading what the ones before it wrote (K1's path in 3a, 3b and 4); then
     lift of the 3a lifters from --model-dir alone (--fused, --policy bf16),
     of the 3b lifters (--mode leg_torso) and of every occlusion scenario
-    (--scenario: the four lifters and a completer). -> (counts by path,
-    trainer summaries)."""
+    (--scenario: the four lifters and a completer). Writes the corpus and
+    the model directory into ``tmp``. -> (counts by path, trainer
+    summaries)."""
     counts, summaries = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        data = tmp / "synthetic.pkl"
-        write_synthetic_pickle(data, n_per_subject=TRAIN_POSES, seed=0,
-                               n_test_per_subject=TEST_POSES, test_subjects=("S9", "S11"))
-        serve = tmp / "serve"
-        serve.mkdir()
-        save_lifter_pt(stacked.left, serve / "left_lifter.pt")
-        save_lifter_pt(stacked.right, serve / "right_lifter.pt")
-        common = ["--data", str(data), "--batch-size", str(MAIN_BATCH), "--device", "cuda"]
-        outs = {}
-        for name, flags in (("fused", ["--fused"]), ("bf16", ["--policy", "bf16"]),
-                            ("f32", [])):
-            outs[name], counts[f"lift {name}"] = _lift(common + ["--model-dir", str(serve)],
-                                                       flags, tmp / f"{name}.npz", name)
-        if counts["lift fused"]["fused_sides_forward"] < 1:
-            raise AssertionError("lift --fused did not launch fused_sides_forward")
-        err = _check_fused(outs["fused"], outs["bf16"], "seeded lifters", "elementwise")
-        f32_gap = float(np.abs(outs["f32"] - outs["bf16"]).max())
-        if f32_gap > 0.05:
-            raise AssertionError(f"lift --policy bf16 is {f32_gap:.3e} from f32")
-        _log(f"[main] lift --fused vs --policy bf16: max abs err {err:.3e}; bf16 vs f32: "
-             f"{f32_gap:.3e}; fused_sides_forward launches "
-             f"{counts['lift fused']['fused_sides_forward']}")
+    data = tmp / "synthetic.pkl"
+    write_synthetic_pickle(data, n_per_subject=TRAIN_POSES, seed=0,
+                           n_test_per_subject=TEST_POSES, test_subjects=("S9", "S11"))
+    serve = tmp / "serve"
+    serve.mkdir()
+    save_lifter_pt(stacked.left, serve / "left_lifter.pt")
+    save_lifter_pt(stacked.right, serve / "right_lifter.pt")
+    common = ["--data", str(data), "--batch-size", str(MAIN_BATCH), "--device", "cuda"]
+    outs = {}
+    for name, flags in (("fused", ["--fused"]), ("bf16", ["--policy", "bf16"]),
+                        ("f32", [])):
+        outs[name], counts[f"lift {name}"] = _lift(common + ["--model-dir", str(serve)],
+                                                   flags, tmp / f"{name}.npz", name)
+    if counts["lift fused"]["fused_sides_forward"] < 1:
+        raise AssertionError("lift --fused did not launch fused_sides_forward")
+    err = _check_fused(outs["fused"], outs["bf16"], "seeded lifters", "elementwise")
+    f32_gap = float(np.abs(outs["f32"] - outs["bf16"]).max())
+    if f32_gap > 0.05:
+        raise AssertionError(f"lift --policy bf16 is {f32_gap:.3e} from f32")
+    _log(f"[main] lift --fused vs --policy bf16: max abs err {err:.3e}; bf16 vs f32: "
+         f"{f32_gap:.3e}; fused_sides_forward launches "
+         f"{counts['lift fused']['fused_sides_forward']}")
 
-        # stages 1 -> 2 -> 3a -> 3b -> 4, one epoch each, in one model directory
-        models = tmp / "models"
-        train = common + ["--model-dir", str(models)]
-        n_steps = 5 * TRAIN_POSES // MAIN_BATCH
-        for name, module, files in (
-                ("stage 1", flow1_cli, ["full_flow.pt"]),
-                ("stage 2", flow2_cli, ["flow_left.pt", "flow_right.pt", "flow_legs.pt",
-                                        "flow_torso.pt"]),
-                ("3a", train_cli, ["left_side_lifter_final.pt", "right_side_lifter_final.pt"]),
-                ("3b", leg_torso_cli, ["leg_lifter.pt", "torso_lifter.pt"]),
-                ("stage 4", occlusion_cli, [f"occlusion_model_weights/{c}_estimator.pt"
-                                            for c in COMPLETER_SPECS])):
-            _, summaries[name], counts[name] = _train(module, train, name)
-            missing = [f for f in files if not (models / f).exists()]
-            if missing:
-                raise AssertionError(f"{name} wrote no {missing}")
-            k1 = counts[name]
-            fwd, bwd = K1_PER_STEP[name][:2]
-            # the validation adds forward calls to the stages that run K1
-            if (k1["res_block_backward"] != n_steps * bwd
-                    or (k1["res_block_forward"] <= n_steps * fwd if fwd
-                        else k1["res_block_forward"] != 0)):
-                raise AssertionError(f"{name}: residual-block kernel launches {k1}")
-            _log(f"[main] {name}: {n_steps} steps, wrote {', '.join(files)}; K1 launches "
-                 f"{k1['res_block_forward']} forward + {k1['res_block_backward']} backward")
+    # stages 1 -> 2 -> 3a -> 3b -> 4, one epoch each, in one model directory
+    models = tmp / "models"
+    train = common + ["--model-dir", str(models)]
+    n_steps = 5 * TRAIN_POSES // MAIN_BATCH
+    for name, module, files in (
+            ("stage 1", flow1_cli, ["full_flow.pt"]),
+            ("stage 2", flow2_cli, ["flow_left.pt", "flow_right.pt", "flow_legs.pt",
+                                    "flow_torso.pt"]),
+            ("3a", train_cli, ["left_side_lifter_final.pt", "right_side_lifter_final.pt"]),
+            ("3b", leg_torso_cli, ["leg_lifter.pt", "torso_lifter.pt"]),
+            ("stage 4", occlusion_cli, [f"occlusion_model_weights/{c}_estimator.pt"
+                                        for c in COMPLETER_SPECS])):
+        _, summaries[name], counts[name] = _train(module, train, name)
+        missing = [f for f in files if not (models / f).exists()]
+        if missing:
+            raise AssertionError(f"{name} wrote no {missing}")
+        k1 = counts[name]
+        fwd, bwd = K1_PER_STEP[name][:2]
+        # the validation adds forward calls to the stages that run K1
+        if (k1["res_block_backward"] != n_steps * bwd
+                or (k1["res_block_forward"] <= n_steps * fwd if fwd
+                    else k1["res_block_forward"] != 0)):
+            raise AssertionError(f"{name}: residual-block kernel launches {k1}")
+        _log(f"[main] {name}: {n_steps} steps, wrote {', '.join(files)}; K1 launches "
+             f"{k1['res_block_forward']} forward + {k1['res_block_backward']} backward")
 
-        # serve what the trainers wrote, from the model directory alone
-        served = common + ["--model-dir", str(models)]
-        fused, counts["lift 3a --fused"] = _lift(served, ["--fused"], tmp / "t_fused.npz",
-                                                 "3a --fused")
-        bf16, counts["lift 3a bf16"] = _lift(served, ["--policy", "bf16"], tmp / "t_bf16.npz",
-                                             "3a --policy bf16")
-        _, counts["lift 3b"] = _lift(served, ["--mode", "leg_torso"], tmp / "t_lt.npz",
-                                     "--mode leg_torso")
-        for scenario in sorted(DROPOUT_SCENARIO_JOINTS):
-            path = f"lift --scenario {scenario}"
-            _, counts[path] = _lift(served, ["--scenario", scenario], tmp / "t_occ.npz",
-                                    f"--scenario {scenario}")
-            if counts[path]["res_block_forward"] < 1:
-                raise AssertionError(f"{path} launched no residual-block kernel: {counts[path]}")
-        if counts["lift 3a --fused"]["fused_sides_forward"] < 1 \
-                or counts["lift 3b"]["res_block_forward"] < 1:
-            raise AssertionError(f"the lifts of the trained lifters launched no kernel: {counts}")
-        # trained weights carry larger activations than the seeded ones, so the
-        # two bf16 forwards (K2, and K1's per block) part further on outputs
-        # near zero (2.5e-3 on values up to 13.6 after one epoch, on an H100):
-        # they are held by the scale rule, and K2 against its own plain
-        # version on the trained weights elementwise (not counted: after the
-        # main path)
-        err = _check_fused(fused, bf16, "the trained 3a lifters", "scale")
-        k2_err = _k2_vs_plain_trained(models, np.load(tmp / "t_fused.npz")["poses_2d"])
-        _log(f"[main] lift --model-dir of the trained 3a lifters: --fused vs --policy bf16 max "
-             f"abs err {err:.3e} (largest value {np.abs(bf16).max():.3e}); fused_sides_forward "
-             f"vs its plain version on them, B={MAIN_BATCH}: max abs err {k2_err:.3e}; "
-             f"lift --mode leg_torso of the 3b lifters: finite; launches "
-             f"{counts['lift 3a --fused']['fused_sides_forward']} fused_sides_forward, "
-             f"{counts['lift 3b']['res_block_forward']} res_block_forward (leg/torso)")
-        _log(f"[main] lift --scenario {'/'.join(sorted(DROPOUT_SCENARIO_JOINTS))} of the trained "
-             f"lifters and completers: finite ({2 * TEST_POSES}, 3, 17) each; res_block_forward "
-             f"launches " + ", ".join(f"{s} {counts['lift --scenario ' + s]['res_block_forward']}"
-                                      for s in sorted(DROPOUT_SCENARIO_JOINTS)))
+    # serve what the trainers wrote, from the model directory alone
+    served = common + ["--model-dir", str(models)]
+    fused, counts["lift 3a --fused"] = _lift(served, ["--fused"], tmp / "t_fused.npz",
+                                             "3a --fused")
+    bf16, counts["lift 3a bf16"] = _lift(served, ["--policy", "bf16"], tmp / "t_bf16.npz",
+                                         "3a --policy bf16")
+    _, counts["lift 3b"] = _lift(served, ["--mode", "leg_torso"], tmp / "t_lt.npz",
+                                 "--mode leg_torso")
+    for scenario in sorted(DROPOUT_SCENARIO_JOINTS):
+        path = f"lift --scenario {scenario}"
+        _, counts[path] = _lift(served, ["--scenario", scenario], tmp / "t_occ.npz",
+                                f"--scenario {scenario}")
+        if counts[path]["res_block_forward"] < 1:
+            raise AssertionError(f"{path} launched no residual-block kernel: {counts[path]}")
+    if counts["lift 3a --fused"]["fused_sides_forward"] < 1 \
+            or counts["lift 3b"]["res_block_forward"] < 1:
+        raise AssertionError(f"the lifts of the trained lifters launched no kernel: {counts}")
+    # trained weights carry larger activations than the seeded ones, so the
+    # two bf16 forwards (K2, and K1's per block) part further on outputs
+    # near zero (2.5e-3 on values up to 13.6 after one epoch, on an H100):
+    # they are held by the scale rule, and K2 against its own plain
+    # version on the trained weights elementwise (not counted: after the
+    # main path)
+    err = _check_fused(fused, bf16, "the trained 3a lifters", "scale")
+    k2_err = _k2_vs_plain_trained(models, np.load(tmp / "t_fused.npz")["poses_2d"])
+    _log(f"[main] lift --model-dir of the trained 3a lifters: --fused vs --policy bf16 max "
+         f"abs err {err:.3e} (largest value {np.abs(bf16).max():.3e}); fused_sides_forward "
+         f"vs its plain version on them, B={MAIN_BATCH}: max abs err {k2_err:.3e}; "
+         f"lift --mode leg_torso of the 3b lifters: finite; launches "
+         f"{counts['lift 3a --fused']['fused_sides_forward']} fused_sides_forward, "
+         f"{counts['lift 3b']['res_block_forward']} res_block_forward (leg/torso)")
+    _log(f"[main] lift --scenario {'/'.join(sorted(DROPOUT_SCENARIO_JOINTS))} of the trained "
+         f"lifters and completers: finite ({2 * TEST_POSES}, 3, 17) each; res_block_forward "
+         f"launches " + ", ".join(f"{s} {counts['lift --scenario ' + s]['res_block_forward']}"
+                                  for s in sorted(DROPOUT_SCENARIO_JOINTS)))
     return counts, summaries
+
+
+def _eval_args(data: Path, models: Path, *flags) -> list:
+    return ["--data", str(data), "--model-dir", str(models), "--batch-size", str(MAIN_BATCH),
+            "--device", "cuda", *flags]
+
+
+def phase_k1_eval_batches(data: Path, models: Path) -> list[int]:
+    """K1's f32 forward against its plain version at the batches that eval's
+    main-path call gives it and K1_BATCHES lacks: the complete frames of
+    the detector test split (the lift, --dropout and --occlusion under
+    --no-gt-2d) and the frames --from-detections composes from two
+    completers. -> (complete frames, all frames, composed frames)."""
+    args = eval_h36m.build_parser().parse_args(_eval_args(data, models, "--no-gt-2d"))
+    complete = len(C.load_test(args))
+    _, missing, _, _ = eval_h36m.detection_inputs(args)
+    composed = len(eval_h36m.detection_plan(missing)[3])
+    batches = {complete, missing.shape[0], composed, EVAL_CHECK_POSES}
+    for batch in sorted(batches - set(K1_BATCHES)):
+        x, w1, b1, w2, b2, _ = _k1_inputs(batch, seed=batch)
+        got = K1.res_block_forward(x, w1, b1, w2, b2, F32)
+        want = K1.res_block_forward_reference(x, w1, b1, w2, b2, F32)
+        errs = [_k1_check(f"res_block_forward f32 B={batch} {n}", g, w, "elementwise")
+                for n, g, w in zip(("y", "a1", "h", "a2"), got, want)]
+        _log(f"[kernel] res_block f32 B={batch} (an eval batch): max abs err forward "
+             f"y/a1/h/a2 {' '.join(f'{e:.2e}' for e in errs)}")
+    _log(f"[eval] eval batches: {complete} complete detector frames, {missing.shape[0]} frames "
+         f"in all, {composed} composed, {EVAL_CHECK_POSES} for the card-vs-CPU check; K1_BATCHES "
+         f"held {sorted(batches & set(K1_BATCHES))}")
+    return complete, missing.shape[0], composed
+
+
+def _eval(data: Path, models: Path, flags: list, name: str) -> tuple[dict, dict]:
+    """One call of the eval entry point, its kernel launches counted from 0;
+    every number it prints finite."""
+    out = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = eval_h36m.main(_eval_args(data, models, *flags))
+    counts = _counts()
+    SECONDS[f"eval {name}"] = time.perf_counter() - t0
+    if json.loads(out.getvalue().strip().splitlines()[-1]) != results:
+        raise AssertionError(f"eval {name}: its JSON line is not its results")
+    bad = [k for k, v in results.items() if not isinstance(v, str) and not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"eval {name}: non-finite {bad}")
+    return results, counts
+
+
+def phase_eval(data: Path, models: Path, composed: int) -> dict:
+    """``links_tpu_torch.cli.eval_h36m`` on the model directory the main
+    path's trainers wrote: the left/right lifters with every occlusion
+    evaluation on the detector split (f32; ``composed`` of its frames take
+    two completers), and the legs/torso lifters. K1's forward calls must be
+    those the evaluations make. -> counts by path."""
+    counts = {}
+    full, counts["eval --occlusion --dropout --from-detections"] = _eval(
+        data, models, ["--policy", "f32", "--occlusion", "--dropout", "--from-detections",
+                       "--no-gt-2d", "--json"], "left_right")
+    want_keys = ({"pa_mpjpe", "n_mpjpe", "mpjpe", "pck", "auc", "cps", "cps_correct",
+                  "mpjpe_units", "det_frames", "det_unserved", "det_n_composed"}
+                 | {f"{p}_{s}" for s in DROPOUT_SCENARIO_JOINTS
+                    for p in ("pa", "n_mpjpe", "dropout_pa", "dropout_naive_pa")})
+    if not want_keys <= set(full) or full["det_n_composed"] != composed:
+        raise AssertionError(f"eval: keys {sorted(want_keys - set(full))} missing, or "
+                             f"{full.get('det_n_composed')} composed frames, not {composed}")
+    lt, counts["eval --mode leg_torso"] = _eval(data, models, ["--mode", "leg_torso", "--json"],
+                                                "leg_torso")
+    # K1 forward calls: 7 blocks per lifter; a scenario's poses run the four
+    # lifters and one completer's 3 blocks; each dropout scenario adds the
+    # naive left/right lift
+    scenario, pair = 4 * 7 + 3, 2 * 7
+    want = {"eval --occlusion --dropout --from-detections":
+            pair + 2 * 8 * (scenario + pair) + pair * (composed > 0) + 4 * 7 + 8 * 3,
+            "eval --mode leg_torso": pair}
+    got = {path: c["res_block_forward"] for path, c in counts.items()}
+    if got != want or any(c["fused_sides_forward"] or c["res_block_backward"]
+                          for c in counts.values()):
+        raise AssertionError(f"eval launched res_block_forward {got} times, expected {want}: "
+                             f"{counts}")
+    _log(f"[eval] --policy f32 --occlusion --dropout --from-detections --no-gt-2d: pa_mpjpe "
+         f"{full['pa_mpjpe']:.4f}, n_mpjpe {full['n_mpjpe']:.4f}, pck {full['pck']:.4f}, "
+         f"auc {full['auc']:.4f}, cps {full['cps']:.4f} / {full['cps_correct']:.4f}; "
+         f"{len(full)} keys, all finite; det: {full['det_frames']} frames, complete share "
+         f"{full['det_complete_frac']:.4f}, {full['det_root_imputed']} roots imputed, "
+         f"{full['det_n_composed']} composed, {full['det_unserved']} unserved; "
+         f"{got['eval --occlusion --dropout --from-detections']} res_block_forward launches")
+    _log(f"[eval] --mode leg_torso: pa_mpjpe {lt['pa_mpjpe']:.4f}, pck {lt['pck']:.4f}; "
+         f"{got['eval --mode leg_torso']} res_block_forward launches")
+    return counts
+
+
+def phase_eval_card_vs_cpu(data: Path, models: Path) -> float:
+    """Eval's device math on the card against the CPU, on the first
+    EVAL_CHECK_POSES test poses (f32 policy): the base lift's metrics, the
+    8 occlusion scenarios' and the 8 dropout scenarios'. The continuous
+    metrics within EVAL_RTOL; the counted ones (PCK, AUC, both CPS) within
+    one count. -> the largest relative error of the continuous ones."""
+    args = eval_h36m.build_parser().parse_args(_eval_args(data, models))
+    test = C.load_test(args)
+    p2d, gt = test.poses_2d[:EVAL_CHECK_POSES], test.poses_3d[:EVAL_CHECK_POSES]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        lifters, completers = C.load_all_lifters(args, dev), C.load_completers(args, dev)
+        x, g = p2d.to(dev), gt.to(dev)
+        with torch.no_grad():
+            pred = obj.lift_left_right_eval(StackedLifter(lifters["left"], lifters["right"]), x,
+                                            10.0, "right", F32)
+            out[dev] = {**eval_h36m.base_metrics(g, pred),
+                        **eval_h36m.occlusion_metrics(completers, lifters, g, x, 10.0, F32),
+                        **eval_h36m.dropout_metrics(completers, lifters, g, x, 10.0, "right",
+                                                    F32)}
+    n = EVAL_CHECK_POSES
+    # what one count moves each counted metric by
+    step = {"pck": 100.0 / (n * 17), "auc": 1.0 / (n * 17 * 150), "cps": 1.0 / n,
+            "cps_correct": 1.0 / n}
+    worst, counted = 0.0, {}
+    for k, want in out["cpu"].items():
+        err = abs(out["cuda"][k] - want)
+        if k in step:
+            counted[k] = err / step[k]
+            ok = err <= step[k] * 1.001
+        else:
+            worst = max(worst, err / max(abs(want), 1e-12))
+            ok = err <= EVAL_RTOL * abs(want)
+        if not ok:
+            raise AssertionError(f"eval {k} on the card {out['cuda'][k]!r} vs the CPU {want!r}")
+    _log(f"[eval] card vs CPU, {n} test poses, f32: {len(out['cpu'])} metrics (base, 8 "
+         f"occlusion scenarios, 8 dropout scenarios); worst relative error {worst:.2e} (bound "
+         f"{EVAL_RTOL}); counted metrics off by "
+         + ", ".join(f"{k} {v:.2f}" for k, v in counted.items()) + " counts (bound 1)")
+    return worst
+
+
+def phase_resume(data: Path, models: Path, tmp: Path) -> dict:
+    """Stage 3a on the card: one epoch and then --resume to two in one
+    directory, two epochs straight in another (the main path's flows in
+    both). Their weights within 2 lr; whether they are bitwise equal is
+    reported. -> counts by path."""
+    counts = {}
+    dirs = {}
+    for name in ("straight", "resumed"):
+        dirs[name] = tmp / f"resume_{name}"
+        dirs[name].mkdir()
+        for f in ("full_flow.pt", "flow_left.pt", "flow_right.pt"):
+            shutil.copy2(models / f, dirs[name] / f)
+    common = ["--data", str(data), "--batch-size", str(MAIN_BATCH), "--device", "cuda",
+              "--seed", "0"]
+    states = {}
+    for path, name, flags in (("resume 3a straight", "straight", ["--epochs", "2"]),
+                              ("resume 3a first epoch", "resumed", ["--epochs", "1"]),
+                              ("resume 3a resumed", "resumed", ["--epochs", "2", "--resume"])):
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            states[name] = train_cli.main(common + ["--model-dir", str(dirs[name]), *flags])
+        counts[path] = _counts()
+        SECONDS[path] = time.perf_counter() - t0
+        if path.endswith("resumed") and not out.getvalue().splitlines()[-2].startswith("epoch 1"):
+            raise AssertionError(f"the resumed 3a run did not start at epoch 1: {out.getvalue()}")
+    a, b = (torch.load(d / "left_right_run.pt", weights_only=True) for d in dirs.values())
+    pairs = list(zip(states["straight"].model.parameters(), states["resumed"].model.parameters()))
+    diff = max(float((p - q).detach().abs().max()) for p, q in pairs)
+    bitwise = all(torch.equal(p, q) for p, q in pairs)
+    moments = all(torch.equal(x, y) for x, y in zip(a["opt"]["mu"] + a["opt"]["nu"],
+                                                     b["opt"]["mu"] + b["opt"]["nu"]))
+    lr = LifterTrainConfig().optim.learning_rate
+    if (a["opt"]["count"], a["step"], a["next_epoch"]) != (b["opt"]["count"], b["step"],
+                                                           b["next_epoch"]) \
+            or not torch.equal(a["generator"], b["generator"]) or diff > 2 * lr:
+        raise AssertionError(f"3a resumed on the card differs from the straight run: params by "
+                             f"{diff:.3e} (bound {2 * lr:.1e}), count {a['opt']['count']} vs "
+                             f"{b['opt']['count']}")
+    _log(f"[resume] 3a on the card, 2 epochs of {a['opt']['count'] // 2} steps: resumed after "
+         f"epoch 1 vs straight, parameters within {diff:.3e} (bound 2 lr = {2 * lr:.1e}), "
+         f"{'bitwise equal' if bitwise else 'not bitwise equal'}; Adam moments "
+         f"{'bitwise equal' if moments else 'not bitwise equal'}; count, step, epoch and "
+         f"generator state equal; K1 launches " + ", ".join(
+             f"{p} {c['res_block_forward']} + {c['res_block_backward']}"
+             for p, c in counts.items()))
+    return counts
+
+
+def phase_pipeline_eval(data: Path, models: Path) -> dict:
+    """``links_tpu_torch.cli.run_pipeline --stages eval --eval-args "--json
+    --occlusion"`` on the model directory. -> counts by path."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        run_pipeline.main(["--stages", "eval", *_eval_args(data, models),
+                           "--eval-args", "--json --occlusion"])
+    counts = {"run_pipeline --stages eval": _counts()}
+    SECONDS["run_pipeline --stages eval"] = time.perf_counter() - t0
+    results = json.loads(out.getvalue().strip().splitlines()[-1])
+    if not {f"pa_{s}" for s in DROPOUT_SCENARIO_JOINTS} <= set(results) \
+            or not all(np.isfinite(v) for v in results.values() if not isinstance(v, str)):
+        raise AssertionError(f"run_pipeline --stages eval printed {results}")
+    _log(f"[pipeline] run_pipeline --stages eval --eval-args '--json --occlusion': pa_mpjpe "
+         f"{results['pa_mpjpe']:.4f}, pa_torso {results['pa_torso']:.4f}, {len(results)} keys; "
+         f"{counts['run_pipeline --stages eval']['res_block_forward']} res_block_forward "
+         f"launches")
+    return counts
+
+
+def phase_metrics_scale(smi: str):
+    """PA-MPJPE and the CPS pair of SCALE_POSES pose pairs on the card (the
+    order of H36M's test split): the batched 3x3 SVD as one call and in
+    chunks of 8192 rows (the JAX package's chunk), each the least of three
+    timed runs; the two must agree."""
+    g = torch.Generator().manual_seed(5)
+    gt = (torch.randn(SCALE_POSES, 51, generator=g) * 200.0).cuda()
+    pred = gt + (torch.randn(SCALE_POSES, 51, generator=g) * 40.0).cuda()
+    # pa_mpjpe is row by row: chunks of rows are chunks of the SVD
+    calls = {"one": lambda: metrics.pa_mpjpe(gt, pred),
+             "chunks": lambda: torch.cat([metrics.pa_mpjpe(g, p) for g, p in
+                                          zip(gt.split(8192), pred.split(8192))])}
+    res = {name: fn() for name, fn in calls.items()}
+    ms = {name: min(_time_ms(fn, iters=3, warmup=1)[0] for _ in range(3))
+          for name, fn in calls.items()}
+    err = float((res["one"] - res["chunks"]).abs().max())
+    if not bool(torch.isfinite(res["one"]).all()) or err > 1e-3:
+        raise AssertionError(f"pa_mpjpe at {SCALE_POSES} poses: one SVD call and chunks differ "
+                             f"by {err:.3e}")
+    ga_ms = min(_time_ms(lambda: metrics.get_all(gt, pred), iters=3, warmup=1)[0]
+                for _ in range(3))
+    _log(f"[metrics] {SCALE_POSES} poses on {smi}: pa_mpjpe {ms['one']:.2f} ms with one SVD "
+         f"call, {ms['chunks']:.2f} ms in chunks of 8192 (max abs difference {err:.2e}); "
+         f"get_all {ga_ms:.2f} ms")
 
 
 def _smi() -> str:
@@ -1108,9 +1357,18 @@ def main() -> int:
     k1_err = _timed("K1 vs plain", phase_k1_vs_plain)
     for name in STAGE_NAMES:
         _timed(f"step card vs CPU {name}", phase_step_card_vs_cpu, name)
-    counts, _ = _timed("main path", phase_main_path, stacked)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        counts, _ = _timed("main path", phase_main_path, stacked, tmp)
+        data, models = tmp / "synthetic.pkl", tmp / "models"
+        _, _, composed = _timed("K1 at the eval batches", phase_k1_eval_batches, data, models)
+        counts.update(_timed("eval", phase_eval, data, models, composed))
+        _timed("eval card vs CPU", phase_eval_card_vs_cpu, data, models)
+        counts.update(_timed("resume", phase_resume, data, models, tmp))
+        counts.update(_timed("pipeline eval", phase_pipeline_eval, data, models))
     smi = _smi()
     _log(smi)
+    _timed("metrics at scale", phase_metrics_scale, smi)
     _, profiles = _timed("step times", phase_step_times, smi)
     k2_rows = _timed("K2 times", phase_times, prep, smi)
     for name, step in profiles.items():

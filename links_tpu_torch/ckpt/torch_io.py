@@ -9,10 +9,14 @@ their defaults, ignored on load). A completer file also holds the
 reference's constructed-but-unused ``res_common`` block (written as zeros,
 ignored on load). Flows use FrEIA's ``SequenceINN`` layout
 (flows/coupling.py). Orbax artifacts need jax and are not read here; the JAX
-trainers write ``.pt`` files with ``--save-pt``.
+trainers write ``.pt`` files with ``--save-pt``. Every file is written
+atomically (``atomic_save``).
 """
 
 from __future__ import annotations
+
+import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -20,6 +24,15 @@ import torch
 from links_tpu_torch.flows.coupling import Flow
 from links_tpu_torch.models.completers import BLOCKS, Completer
 from links_tpu_torch.models.lifters import CHAIN, Lifter
+
+
+def atomic_save(obj, path) -> None:
+    """``torch.save`` to a temporary name beside ``path``, then a rename: a
+    crash mid-write leaves the file as it was."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
 
 
 def _t(a) -> torch.Tensor:
@@ -81,7 +94,7 @@ def _save_pt(module, path, blocks, zero_blocks=()) -> None:
         for bn in ("bn1", "bn2"):
             sd[f"{blk}.{bn}.weight"] = torch.ones(hidden)
             sd[f"{blk}.{bn}.bias"] = torch.zeros(hidden)
-    torch.save(sd, path)
+    atomic_save(sd, path)
 
 
 def lifter_from_state_dict(state_dict: dict, device="cpu") -> Lifter:
@@ -161,4 +174,4 @@ def load_flow_pt(path, device="cpu") -> Flow:
 
 def save_flow_pt(flow: Flow, path) -> None:
     """Write ``flow`` as a FrEIA-layout ``.pt``."""
-    torch.save({k: v.detach().cpu().clone() for k, v in flow.state_dict().items()}, path)
+    atomic_save({k: v.detach().cpu().clone() for k, v in flow.state_dict().items()}, path)

@@ -1,16 +1,32 @@
-"""Shared CLI plumbing of the port: the data, checkpoint and training flags
-the serving lift and the trainers of stages 1, 2, 3a, 3b and 4 need (the
-subset of links_tpu/cli/_common.py they use)."""
+"""Shared CLI plumbing of the port: the data, checkpoint, training and
+lifecycle flags that its entry points need (the serving lift, eval, the
+trainers of stages 1, 2, 3a, 3b and 4, and the pipeline), the subset of
+links_tpu/cli/_common.py they use.
+
+Artifacts in ``--model-dir``: the flows ``<name>.pt``; the final lifters
+and completers in the reference layout (``LR_LIFTERS``,
+``LEG_TORSO_LIFTERS``, ``occlusion_model_weights/``) and their best-epoch
+twins (``*_best.pt``, ``occlusion_model_weights_best/``), each described by
+a ``<artifact>_best.meta.json`` sidecar under the JAX package's artifact
+name, written after its weights; and each stage's run checkpoint
+``<stage>_run.pt`` (``ckpt/run_io.py``).
+"""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import dataclasses
 import functools
 import json
+import os
+import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from links_tpu_torch.core import geometry
@@ -26,8 +42,10 @@ from links_tpu_torch.data.datasets import (
     TRAIN_SUBJECTS,
     load_h36m,
     load_mpi_inf_3dhp,
+    read_pickle,
 )
 from links_tpu_torch.data.synthetic import write_synthetic_pickle
+from links_tpu_torch.models.completers import COMPLETER_SPECS
 
 # Artifact names of the flows (<name>.pt), as the JAX trainers' --save-pt names them
 FULL_FLOW = "full_flow"
@@ -35,21 +53,36 @@ FLOW_LEFT = "flow_left"
 FLOW_RIGHT = "flow_right"
 FLOW_LEGS = "flow_legs"
 FLOW_TORSO = "flow_torso"
-# Lifter artifacts: the (left, right) pair the 3a trainer writes (the
-# reference's names), the reference-layout pair, and the (legs, torso) pair
+# The JAX package's names of the lifter and completer artifacts: the names of
+# their _best.meta.json sidecars here
+LIFTER_LR = "lifter_left_right"
+LIFTER_LEGS = "lifter_legs"
+LIFTER_TORSO = "lifter_torso"
+OCCLUSION = "occlusion_models"
+# Lifter files: the (left, right) pair the 3a trainer writes (the reference's
+# names) and its best-epoch twin, the reference-layout pair, and the (legs,
+# torso) pair of 3b
 LR_LIFTERS = ("left_side_lifter_final.pt", "right_side_lifter_final.pt")
+LR_LIFTERS_BEST = ("left_side_lifter_best.pt", "right_side_lifter_best.pt")
 LR_LIFTERS_REFERENCE = ("left_lifter.pt", "right_lifter.pt")
 LEG_TORSO_LIFTERS = ("leg_lifter.pt", "torso_lifter.pt")
 # Stage 4's completers: <model-dir>/occlusion_model_weights/<name>_estimator.pt
-# (the reference's names), one per completer of models.completers.COMPLETER_SPECS
+# (the reference's names; the best epoch's in occlusion_model_weights_best/),
+# one per completer of models.completers.COMPLETER_SPECS
 COMPLETERS_DIR = "occlusion_model_weights"
-# seed of the lifter trainers' unsupervised validation draws: fixed and
-# independent of --seed, so the criterion compares across epochs and seeds
+# artifact -> (final files, best-epoch files) of the lifters
+_LIFTER_FILES = {
+    LIFTER_LR: (LR_LIFTERS, LR_LIFTERS_BEST),
+    LIFTER_LEGS: (LEG_TORSO_LIFTERS[:1], ("leg_lifter_best.pt",)),
+    LIFTER_TORSO: (LEG_TORSO_LIFTERS[1:], ("torso_lifter_best.pt",)),
+}
+# seed of the trainers' unsupervised validation draws: fixed and independent
+# of --seed, so the criterion compares across epochs and seeds
 VAL_SEED = 20_000
 
 
 def _test_scale(value: str):
-    """--test-scale: a float, or 'auto' (refused: not yet ported)."""
+    """--test-scale: a float, or 'auto'."""
     return value if value == "auto" else float(value)
 
 
@@ -65,13 +98,21 @@ def add_common_flags(parser: argparse.ArgumentParser):
                         default=None,
                         help="test normalization scale variant; defaults by dataset")
     parser.add_argument("--test-scale", type=_test_scale, default=None,
-                        help="override the fixed test-normalization scale "
-                             "('auto' is not yet ported)")
+                        help="override the fixed test-normalization scale: a float, or "
+                             "'auto' for the train split's mean root-to-head 2D distance "
+                             "(the quantity the reference's constant measures)")
     parser.add_argument("--model-dir", default="models", help="artifact directory")
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--seed", type=int, default=42,
                         help="seed of the synthetic data and of the trainers' "
                              "torch.Generator")
+    parser.add_argument("--no-gt-2d", dest="gt_2d", action="store_false", default=True,
+                        help="train and evaluate on detector 2D keypoints (the pickle's "
+                             "poses_2d_pred arrays when every subject has one); frames "
+                             "with an undetected (zeroed) keypoint are dropped unless "
+                             "--keep-incomplete")
+    parser.add_argument("--keep-incomplete", action="store_true",
+                        help="with --no-gt-2d: keep frames with missing keypoints")
     parser.add_argument("--synthetic", action="store_true",
                         help="generate synthetic data at --data if missing (smoke runs)")
     parser.add_argument("--synthetic-n", type=int, default=512,
@@ -86,6 +127,12 @@ def add_lr_pt_flags(parser: argparse.ArgumentParser):
                         help="reference-layout left_lifter.pt")
     parser.add_argument("--right-pt", default=None,
                         help="reference-layout right_lifter.pt")
+    return parser
+
+
+def add_device_flag(parser: argparse.ArgumentParser):
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to compute on (cuda, cuda:1, cpu)")
     return parser
 
 
@@ -125,12 +172,8 @@ def add_lifter_flags(parser: argparse.ArgumentParser):
     return parser
 
 
-# Flags of the JAX trainers that later slices port: accepted, then refused.
-# The lifter and completer trainers also refuse --save-every, which in the
-# JAX package paces only their run checkpoints, and --select-by, which picks
-# their best checkpoint (neither ported yet).
-UNPORTED_TRAIN_FLAGS = ("resume", "packed_data", "distributed", "num_devices", "wandb")
-UNPORTED_LIFTER_FLAGS = UNPORTED_TRAIN_FLAGS + ("save_every", "select_by")
+# Flags of the JAX trainers that a later slice ports: accepted, then refused
+UNPORTED_TRAIN_FLAGS = ("packed_data", "distributed", "num_devices", "wandb")
 
 
 def add_train_flags(parser: argparse.ArgumentParser, bf16_opt_state_default: bool = False,
@@ -154,19 +197,20 @@ def add_train_flags(parser: argparse.ArgumentParser, bf16_opt_state_default: boo
                         help="store Adam moments in bfloat16 at rest (f32 update math)")
     parser.add_argument("--validate-every", type=int, default=1,
                         help="validate every N epochs (always on the final epoch)")
+    parser.add_argument("--save-every", type=int, default=None,
+                        help="write the run checkpoint (and the flow trainers' flows) every "
+                             "N epochs (default 1; always the final epoch)")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the stage's run checkpoint <model-dir>/<stage>_run.pt "
+                             "(weights, Adam state, epoch, generator state); without it a "
+                             "run first removes the stage's own artifacts")
     parser.add_argument("--log", default=None,
                         help="JSONL metrics path (default <model-dir>/<stage>.jsonl)")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device to compute on (cuda, cuda:1, cpu)")
-    parser.add_argument("--resume", action="store_true", help="(not yet ported)")
+    add_device_flag(parser)
     parser.add_argument("--packed-data", default=None, help="(not yet ported)")
     parser.add_argument("--distributed", action="store_true", help="(not yet ported)")
     parser.add_argument("--num-devices", type=int, default=None, help="(not yet ported)")
     parser.add_argument("--wandb", action="store_true", help="(not yet ported)")
-    parser.add_argument("--save-every", type=int, default=None,
-                        help="flow trainers: write the flows every N epochs (default 1; "
-                             "always the final epoch); lifter and completer trainers: not "
-                             "yet ported")
     return parser
 
 
@@ -199,8 +243,8 @@ def resolve_cfg(args, cfg):
 
 
 def due(args, epoch: int, n_epochs: int, attr: str) -> bool:
-    """True when the periodic action named by ``attr`` ('validate_every') is
-    due this epoch. The final epoch is always due."""
+    """True when the periodic action named by ``attr`` ('save_every',
+    'validate_every') is due this epoch. The final epoch is always due."""
     every = max(1, getattr(args, attr, 1) or 1)
     return (epoch + 1) % every == 0 or epoch + 1 == n_epochs
 
@@ -214,7 +258,7 @@ _TEST_NORMS = {
 
 
 def _split_spec(args):
-    """(path, loader, train subjects, test subjects, test normalizer)."""
+    """(path, loader, train subjects, test subjects, test normalizer, use_gt)."""
     path = ensure_data(args)
     if args.dataset == "mpi":
         # held out: train S1-S6, evaluate on S7/S8
@@ -227,31 +271,109 @@ def _split_spec(args):
         train_s = tuple(args.train_subjects.split(","))
     if args.test_subjects:
         test_s = tuple(args.test_subjects.split(","))
-    if args.test_scale == "auto":
-        raise SystemExit("--test-scale auto is not yet ported to links_tpu_torch; "
-                         "pass the scale as a number")
+    use_gt = getattr(args, "gt_2d", True)
     if args.test_scale:
-        norm = functools.partial(geometry.normalize_head_test, scale=args.test_scale)
-    return path, loader, train_s, test_s, norm
+        scale = (_train_head_scale(path, train_s, use_gt) if args.test_scale == "auto"
+                 else args.test_scale)
+        norm = functools.partial(geometry.normalize_head_test, scale=scale)
+    return path, loader, train_s, test_s, norm, use_gt
+
+
+def _complete_only(args) -> bool:
+    """Drop frames with an undetected keypoint: detector 2D without
+    --keep-incomplete."""
+    return not getattr(args, "gt_2d", True) and not getattr(args, "keep_incomplete", False)
+
+
+def _train_head_scale(path, train_subjects, use_gt: bool = True) -> float:
+    """The mean root-to-head 2D distance over the train subjects (what the
+    reference's fixed test scales measure), from the 2D keypoints the loaders
+    read (ground truth, or the detector's under --no-gt-2d, then only over
+    frames whose root and head were both detected)."""
+    d = read_pickle(path)
+    key_2d = "poses_2d"
+    if not use_gt and all("poses_2d_pred" in d[s] for s in train_subjects):
+        key_2d = "poses_2d_pred"
+    p2 = np.concatenate([np.asarray(d[s][key_2d]) for s in train_subjects])
+    if key_2d == "poses_2d_pred":
+        ok = ~(np.all(p2[:, 0] == 0.0, axis=-1) | np.all(p2[:, 10] == 0.0, axis=-1))
+        p2 = p2[ok]
+    p2 = p2.transpose(0, 2, 1).reshape(-1, 2, 17)
+    c = p2 - p2[:, :, 0:1]
+    return float(np.linalg.norm(c[:, :, 0] - c[:, :, 10], axis=1).mean())
 
 
 def load_test(args):
     """The normalized test split (S9/S11 for h36m, S7/S8 for mpi)."""
-    path, loader, _, test_s, norm = _split_spec(args)
-    return loader(path, test_s, normalize_func=norm)
+    path, loader, _, test_s, norm, use_gt = _split_spec(args)
+    return loader(path, test_s, normalize_func=norm, use_gt=use_gt,
+                  complete_only=_complete_only(args))
 
 
 def load_train(args):
     """The train split, normalized with ``normalize_head``."""
-    path, loader, train_s, _, _ = _split_spec(args)
-    return loader(path, train_s, normalize_func=geometry.normalize_head)
+    path, loader, train_s, _, _, use_gt = _split_spec(args)
+    return loader(path, train_s, normalize_func=geometry.normalize_head, use_gt=use_gt,
+                  complete_only=_complete_only(args))
 
 
 def load_train_test(args):
     """(train split normalized with ``normalize_head``, test split)."""
-    path, loader, train_s, test_s, norm = _split_spec(args)
-    return (loader(path, train_s, normalize_func=geometry.normalize_head),
-            loader(path, test_s, normalize_func=norm))
+    path, loader, train_s, test_s, norm, use_gt = _split_spec(args)
+    co = _complete_only(args)
+    return (loader(path, train_s, normalize_func=geometry.normalize_head, use_gt=use_gt,
+                   complete_only=co),
+            loader(path, test_s, normalize_func=norm, use_gt=use_gt, complete_only=co))
+
+
+def artifact(args, name: str) -> Path:
+    return Path(args.model_dir) / name
+
+
+def artifact_paths(args, name: str, best: bool = False) -> list[Path]:
+    """The weight files of artifact ``name`` (a flow, ``LIFTER_*`` or
+    ``OCCLUSION``) in ``--model-dir``: its final ones, or its best epoch's."""
+    model_dir = Path(args.model_dir)
+    if name == OCCLUSION:
+        folder = model_dir / (COMPLETERS_DIR + ("_best" if best else ""))
+        return [folder / f"{c}_estimator.pt" for c in COMPLETER_SPECS]
+    if name in _LIFTER_FILES:
+        return [model_dir / f for f in _LIFTER_FILES[name][best]]
+    return [model_dir / f"{name}{'_best' if best else ''}.pt"]
+
+
+def save_artifact(args, name: str, module, best: bool = False):
+    """Write a lifter or completer artifact's weights in the reference layout
+    (each file atomically): ``LIFTER_LR`` from a ``StackedLifter``,
+    ``LIFTER_LEGS``/``LIFTER_TORSO`` from a ``Lifter``, ``OCCLUSION`` from a
+    ``Completers``."""
+    from links_tpu_torch.ckpt.torch_io import save_completer_pt, save_lifter_pt
+
+    if name == LIFTER_LR:
+        parts, save = (module.left, module.right), save_lifter_pt
+    elif name == OCCLUSION:
+        parts, save = [module[c] for c in COMPLETER_SPECS], save_completer_pt
+    else:
+        parts, save = (module,), save_lifter_pt
+    for part, path in zip(parts, artifact_paths(args, name, best)):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        save(part, path)
+
+
+def clear_stage_artifacts(args, stage: str, names):
+    """Remove this stage's artifacts of an earlier run (its run checkpoint,
+    and the final and best weights and sidecar of each of ``names``) before
+    a fresh run starts, so that no consumer or --resume reads a stale one as
+    this run's. A --resume run keeps them. The frozen inputs are never
+    touched."""
+    if getattr(args, "resume", False):
+        return
+    doomed = [artifact(args, f"{stage}_run.pt")]
+    for name in names:
+        doomed += [*artifact_paths(args, name), *artifact_paths(args, name, best=True),
+                   artifact(args, f"{name}_best.meta.json")]
+    for path in doomed:
+        path.unlink(missing_ok=True)
 
 
 def load_flow(args, name: str, device):
@@ -272,9 +394,10 @@ def load_flow(args, name: str, device):
 def load_stacked_lr(args, device):
     """The (left, right) lifter pair as a ``StackedLifter`` on ``device``, in
     the JAX package's order: ``--left-pt``/``--right-pt``; else the pair
-    the stage-3a trainers write in ``--model-dir``
-    (``{left,right}_side_lifter_final.pt``); else the reference-layout pair
-    there (``{left,right}_lifter.pt``)."""
+    the stage-3a trainers write in ``--model-dir``, its best epoch's
+    (``{left,right}_side_lifter_best.pt``) as ``best_suffix`` decides, or
+    the final one (``{left,right}_side_lifter_final.pt``); else the
+    reference-layout pair there (``{left,right}_lifter.pt``)."""
     from links_tpu_torch.ckpt.torch_io import load_lifter_pt
     from links_tpu_torch.models.lifters import StackedLifter
 
@@ -282,13 +405,15 @@ def load_stacked_lr(args, device):
     if bool(left_pt) != bool(right_pt):
         raise ValueError("--left-pt and --right-pt must be given together")
     if not left_pt:
-        pairs = [[Path(args.model_dir) / f for f in names]
-                 for names in (LR_LIFTERS, LR_LIFTERS_REFERENCE)]
+        best = bool(best_suffix(args, LIFTER_LR))  # raises for a missing --use-best pair
+        pairs = [artifact_paths(args, LIFTER_LR, best)]
+        if not best:
+            pairs.append([Path(args.model_dir) / f for f in LR_LIFTERS_REFERENCE])
         found = [p for p in pairs if all(f.exists() for f in p)]
         if not found:
             raise FileNotFoundError(
                 f"no left/right lifter weights: expected {' + '.join(map(str, pairs[0]))} "
-                f"(the stage-3a trainers write them) or {' + '.join(map(str, pairs[1]))} "
+                f"(the stage-3a trainers write them) or {' + '.join(map(str, pairs[-1]))} "
                 f"(a reference .pt pair); train stage 3a first or pass --left-pt/--right-pt")
         left_pt, right_pt = found[0]
     return StackedLifter(load_lifter_pt(left_pt, device),
@@ -298,10 +423,11 @@ def load_stacked_lr(args, device):
 def load_leg_torso(args, device):
     """(legs, torso) ``Lifter``s on ``device`` from the ``leg_lifter.pt`` and
     ``torso_lifter.pt`` that the stage-3b trainers write (the JAX one with
-    --save-pt)."""
+    --save-pt), or their best epoch's twins as ``best_suffix`` decides."""
     from links_tpu_torch.ckpt.torch_io import load_lifter_pt
 
-    paths = [Path(args.model_dir) / f for f in LEG_TORSO_LIFTERS]
+    paths = [artifact_paths(args, name, bool(best_suffix(args, name)))[0]
+             for name in (LIFTER_LEGS, LIFTER_TORSO)]
     missing = [str(p) for p in paths if not p.exists()]
     if missing:
         raise FileNotFoundError(f"no leg/torso lifter weights: expected {missing}")
@@ -320,24 +446,19 @@ def load_all_lifters(args, device) -> dict:
 
 def load_completers(args, device):
     """The eight completers from ``<model-dir>/occlusion_model_weights/`` (the
-    stage-4 trainers write them, the JAX one with --save-pt) as a
-    ``ModuleDict`` keyed by name, in ``COMPLETER_SPECS`` order, on ``device``;
-    each completer's width is its file's."""
+    stage-4 trainers write them, the JAX one with --save-pt; or
+    ``occlusion_model_weights_best/`` as ``best_suffix`` decides) as a
+    ``ModuleDict`` keyed by name, in ``COMPLETER_SPECS`` order, on
+    ``device``; each completer's width is its file's."""
     from links_tpu_torch.ckpt.torch_io import load_completer_pt
-    from links_tpu_torch.models.completers import COMPLETER_SPECS
 
-    paths = {name: completer_path(args, name) for name in COMPLETER_SPECS}
+    paths = dict(zip(COMPLETER_SPECS,
+                     artifact_paths(args, OCCLUSION, bool(best_suffix(args, OCCLUSION)))))
     missing = [str(p) for p in paths.values() if not p.exists()]
     if missing:
         raise FileNotFoundError(f"no completer weights: expected {missing}; train stage 4 "
                                 f"first (links_tpu_torch.cli.train_occlusion_models)")
     return torch.nn.ModuleDict({name: load_completer_pt(p, device) for name, p in paths.items()})
-
-
-def completer_path(args, name: str) -> Path:
-    """Where the completer ``name`` lives: ``<model-dir>/occlusion_model_weights/
-    <name>_estimator.pt``."""
-    return Path(args.model_dir) / COMPLETERS_DIR / f"{name}_estimator.pt"
 
 
 def resolve_device(name: str) -> torch.device:
@@ -382,47 +503,343 @@ def validate_unsup(loss_fn, test_2d: torch.Tensor) -> dict[str, float]:
     return dict(zip(("val_nll", "val_unsup_loss"), torch.stack([aux["likeli"], loss]).tolist()))
 
 
+def _write_text(path: Path, text: str):
+    """Write ``text`` to ``path`` atomically (a temporary name, then a rename)."""
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(text)
+    os.replace(tmp, path)
+
+
+class BestTracker:
+    """Keep ``_best`` weights of the best validation epoch (counterpart of
+    links_tpu's ``BestTracker``): the unsupervised lifting objective can walk
+    into the depth-flipped mode late in training while its loss still falls,
+    so the best epoch's weights are kept beside the final ones. ``metric``
+    is the record key to minimise; with ``gate_metric`` (the depth-tilt
+    alarm, ``val_tilt``) only epochs where it is negative are eligible.
+
+    Each artifact's weights are written first and its
+    ``<name>_best.meta.json`` sidecar (``{"epoch": ..., metric: ...}``)
+    after them, so that a sidecar never describes weights that were not
+    written. In deferred mode an improvement is held as a copy in memory
+    (``Adam.step`` updates the live parameters in place) and reaches the
+    disk at ``flush``, which the trainers call at each --save-every epoch
+    and at the end."""
+
+    def __init__(self, metric: str, gate_metric: str | None = None, deferred: bool = False):
+        self.metric = metric
+        self.gate_metric = gate_metric
+        self.best = float("inf")
+        self.epoch = -1
+        self.gated_out = 0
+        self.deferred = deferred
+        self._pending = None  # (epoch, value, {name: module copy})
+
+    def maybe_restore(self, args, name: str):
+        """Seed the bar from an existing ``<name>_best.meta.json``, so that a
+        --resume'd run cannot overwrite a better best of the run before it."""
+        sidecar = artifact(args, f"{name}_best.meta.json")
+        if sidecar.exists():
+            extra = json.loads(sidecar.read_text())
+            if self.metric in extra:
+                self.best = float(extra[self.metric])
+                self.epoch = int(extra.get("epoch", -1))
+        return self
+
+    def update(self, args, epoch: int, rec: dict, artifacts: dict) -> bool:
+        """``artifacts`` maps an artifact name to its live module. Keep them
+        as ``_best`` when ``rec[self.metric]`` improves on the best so far.
+        -> True on an improvement."""
+        value = rec.get(self.metric)
+        if value is None or not value < self.best:
+            return False
+        if self.gate_metric is not None:
+            gate = rec.get(self.gate_metric)
+            if gate is None or not gate < 0.0:  # a depth-flipped epoch
+                self.gated_out += 1
+                return False
+        self.best, self.epoch = float(value), epoch
+        if self.deferred:
+            # deepcopy clones every parameter (detached from the live ones)
+            with torch.no_grad():
+                self._pending = (epoch, float(value),
+                                 {name: copy.deepcopy(m) for name, m in artifacts.items()})
+            return True
+        self._write(args, epoch, float(value), artifacts)
+        return True
+
+    def flush(self, args):
+        """Write the pending deferred best (no-op when there is none)."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self._write(args, *pending)
+
+    def _write(self, args, epoch: int, value: float, artifacts: dict):
+        record = json.dumps({"epoch": epoch, self.metric: value})
+        for name, module in artifacts.items():
+            sidecar = artifact(args, f"{name}_best.meta.json")
+            sidecar.unlink(missing_ok=True)
+            save_artifact(args, name, module, best=True)
+            _write_text(sidecar, record)
+
+
+class EpochTimer:
+    """Wall-clock attribution of a trainer's loop (counterpart of
+    links_tpu's ``EpochTimer``): sections 'step' (the epoch's steps, ending
+    in a device read), 'validate', 'checkpoint' (run checkpoints and
+    weights, ``_best`` included), and 'host' (the rest). ``report`` returns
+    ``time_<section>_s``, ``time_wall_s``, ``poses_per_sec_step``,
+    ``poses_per_sec_delivered`` and, after more than one epoch, the steady
+    step rate without the first epoch (``poses_per_sec_step_steady``,
+    ``time_step_first_s``) and each other section's first time."""
+
+    def __init__(self):
+        self.tot, self.first, self.count = {}, {}, {}
+        self._wall0 = None
+
+    def start(self):
+        self._wall0 = time.perf_counter()
+        return self
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.tot[name] = self.tot.get(name, 0.0) + dt
+            self.count[name] = self.count.get(name, 0) + 1
+            self.first.setdefault(name, dt)
+
+    def report(self, n_poses: int) -> dict:
+        """The breakdown of the time since ``start`` (also printed to stderr)."""
+        wall = (time.perf_counter() - self._wall0 if self._wall0 is not None
+                else sum(self.tot.values()))
+        rows = dict(self.tot, host=max(0.0, wall - sum(self.tot.values())))
+        out = {f"time_{k}_s": round(v, 3) for k, v in rows.items()}
+        out["time_wall_s"] = round(wall, 3)
+        step_s = self.tot.get("step", 0.0)
+        if step_s > 0:
+            out["poses_per_sec_step"] = round(n_poses / step_s, 1)
+        if wall > 0:
+            out["poses_per_sec_delivered"] = round(n_poses / wall, 1)
+        n_steps = self.count.get("step", 0)
+        if n_steps > 1 and step_s > self.first.get("step", 0.0):
+            steady = n_poses / n_steps * (n_steps - 1) / (step_s - self.first["step"])
+            out["poses_per_sec_step_steady"] = round(steady, 1)
+            out["time_step_first_s"] = round(self.first["step"], 3)
+        for name, cnt in self.count.items():
+            if name != "step" and cnt > 1:
+                out[f"time_{name}_first_s"] = round(self.first[name], 3)
+        parts = " ".join(f"{k}={v:.1f}s ({100 * v / wall:.0f}%)" for k, v in rows.items()
+                         if wall > 0)
+        print(f"[links_tpu_torch] wall {wall:.1f}s: {parts}; delivered "
+              f"{out.get('poses_per_sec_delivered', 0):.0f} poses/s (step-only "
+              f"{out.get('poses_per_sec_step', 0):.0f})", file=sys.stderr)
+        return out
+
+
+def add_select_by_flag(parser: argparse.ArgumentParser):
+    """The lifter trainers' criterion of the best epoch."""
+    parser.add_argument(
+        "--select-by", choices=["pa", "nll", "loss", "nll-tilt"], default="pa",
+        help="validation metric the _best weights are selected on: 'pa' = PA-MPJPE "
+             "against the test split's 3D ground truth (used for selection only); 'nll' "
+             "= the part flows' NLL of the validation reprojections; 'loss' = the whole "
+             "unsupervised validation objective; 'nll-tilt' = the NLL, with only epochs "
+             "the depth-flip alarm passes (val_tilt < 0) eligible. All are logged every "
+             "validation epoch regardless")
+
+
+def select_metric(args, pa_name: str) -> str:
+    return {"pa": pa_name, "nll": "val_nll", "loss": "val_unsup_loss",
+            "nll-tilt": "val_nll"}[getattr(args, "select_by", "pa")]
+
+
+def select_gate(args) -> str | None:
+    """The gate metric of the ``BestTracker``, or None (only nll-tilt gates)."""
+    return "val_tilt" if getattr(args, "select_by", "pa") == "nll-tilt" else None
+
+
+def add_flip_guard_flag(parser: argparse.ArgumentParser):
+    parser.add_argument(
+        "--flip-guard", type=int, default=None, metavar="K",
+        help="stop training after K consecutive depth-flipped validation epochs "
+             "(val_tilt >= 0), once an un-flipped one has armed the guard; the best "
+             "weights are kept. Off by default; val_tilt is logged regardless")
+
+
+class FlipGuard:
+    """Early stop on a sustained depth flip (counterpart of links_tpu's
+    ``FlipGuard``): armed by the first validation epoch with ``val_tilt <
+    0``, it fires after ``patience`` consecutive epochs with ``val_tilt >=
+    0``."""
+
+    def __init__(self, patience: int | None):
+        self.patience = patience
+        self.armed = False
+        self.streak = 0
+        self.fired_epoch = -1
+
+    def update(self, epoch: int, rec: dict) -> bool:
+        """Feed one epoch's record; -> True to stop training now."""
+        tilt = rec.get("val_tilt")
+        if self.patience is None or tilt is None:
+            return False
+        if tilt < 0.0:
+            self.armed, self.streak = True, 0
+            return False
+        if not self.armed:
+            return False
+        self.streak += 1
+        if self.streak < self.patience:
+            return False
+        self.fired_epoch = epoch
+        print(f"[links_tpu_torch] --flip-guard: stopping at epoch {epoch}: {self.streak} "
+              f"consecutive depth-flipped validation epochs (val_tilt >= 0); the best "
+              f"weights are unaffected", file=sys.stderr)
+        return True
+
+
+def add_use_best_flag(parser: argparse.ArgumentParser):
+    g = parser.add_mutually_exclusive_group()
+    g.add_argument("--use-best", action="store_true",
+                   help="require the lifters' and completers' best-epoch weights (*_best.pt, "
+                        "occlusion_model_weights_best/; an error if absent). Without either "
+                        "flag they are preferred when present")
+    g.add_argument("--use-final", action="store_true",
+                   help="read the last epoch's weights even when best-epoch ones exist")
+    return parser
+
+
+def best_suffix(args, name: str | None = None) -> str:
+    """'_best' when artifact ``name``'s best-epoch weights are to be read,
+    else '': ``--use-final`` -> ''; ``--use-best`` -> '_best', and they must
+    exist; neither -> '_best' when they exist (announced on stderr), else
+    ''. With no ``name`` only the flags decide."""
+    if getattr(args, "use_final", False):
+        return ""
+    explicit = getattr(args, "use_best", False)
+    if name is None:
+        return "_best" if explicit else ""
+    missing = [str(p) for p in artifact_paths(args, name, best=True) if not p.exists()]
+    if not missing:
+        if not explicit:
+            _announce_best(args, name)
+        return "_best"
+    if explicit:
+        raise FileNotFoundError(f"--use-best: {', '.join(missing)} missing (the trainer writes "
+                                f"them on validation improvements); drop the flag or pass "
+                                f"--use-final")
+    return ""
+
+
+def _announce_best(args, name: str):
+    """Say on stderr that ``name``'s best-epoch weights are read, with the
+    selection record of its sidecar."""
+    sidecar = artifact(args, f"{name}_best.meta.json")
+    try:
+        extra = json.loads(sidecar.read_text())
+    except (OSError, ValueError):
+        extra = {}
+    detail = ", ".join(f"{k}={v}" for k, v in sorted(extra.items()))
+    print(f"[links_tpu_torch] using best-validation weights for {name}"
+          + (f" ({detail})" if detail else "") + "; pass --use-final for the last epoch's",
+          file=sys.stderr)
+
+
 def log_record(fh, record: dict, **extra):
     """One JSON record per line (the JAX package's MetricLogger format)."""
     fh.write(json.dumps(dict(record, _time=time.time(), **extra)) + "\n")
     fh.flush()
 
 
+class TrainResult(NamedTuple):
+    seconds: float  # in the epochs' steps
+    steps: int      # taken by this run (a resumed run counts from its start)
+    rec: dict       # the last epoch's record
+    report: dict    # EpochTimer.report
+
+
 def run_training(args, cfg, step, state, data: torch.Tensor, generator: torch.Generator,
-                 log_name: str, config: dict, on_epoch, draw=None):
-    """The trainers' epoch loop: ``cfg.n_epochs`` epochs of ``step`` over
-    ``data`` (``train.loop.run_epoch``, with ``draw`` as there). After each
-    epoch ``on_epoch(epoch, rec)`` may add to the record and write artifacts,
-    and returns the text of the epoch's line after ``epoch N: ``; the record
-    goes to the JSONL log (``--log``, default ``<model-dir>/<log_name>.jsonl``,
-    after one ``_config`` record) and the line to stdout. -> (seconds spent
-    in the epochs' steps, the last epoch's record)."""
+                 log_name: str, config: dict, on_epoch, draw=None, *, stage: str,
+                 save: Callable[[bool], None], tracker: BestTracker | None = None,
+                 best: dict | None = None, guard: FlipGuard | None = None) -> TrainResult:
+    """The trainers' epoch loop (the JAX trainers' loop, one copy for all):
+    with --resume, the run checkpoint ``<model-dir>/<stage>_run.pt`` first
+    restores ``state`` and ``generator`` and the epoch to start from. Then
+    epochs to ``cfg.n_epochs`` of ``step`` over ``data``
+    (``train.loop.run_epoch``, with ``draw`` as there). After each epoch
+    ``on_epoch(epoch, rec)`` may validate into the record and returns the
+    text of the epoch's line after ``epoch N: ``; ``tracker`` keeps the
+    ``best`` artifacts (name -> live module) of the best validated epoch;
+    ``guard`` may stop the run. At each --save-every epoch (and at a stop):
+    the tracker's pending best, ``save(final)`` (``final`` at the last epoch
+    or a stop: the stage's consumer-facing weights), then the run
+    checkpoint. The records go to the JSONL log (``--log``, default
+    ``<model-dir>/<log_name>.jsonl``, after one ``_config`` record) and the
+    lines to stdout; the timer's report to ``print_summary``."""
+    from links_tpu_torch.ckpt.run_io import maybe_resume, save_run
     from links_tpu_torch.train.loop import run_epoch
     from links_tpu_torch.train.steps import draw_step
 
+    start = maybe_resume(args, stage, state, generator)
+    if tracker is not None and getattr(args, "resume", False):
+        # also when no run checkpoint exists yet: a best written before the
+        # first --save-every epoch still sets the bar
+        tracker.maybe_restore(args, next(iter(best)))
     log_path = Path(args.log) if args.log else Path(args.model_dir) / f"{log_name}.jsonl"
     log_path.parent.mkdir(parents=True, exist_ok=True)
-    step_seconds, rec = 0.0, {}
+    timer, step0, rec = EpochTimer().start(), state.step, {}
     with log_path.open("a") as log:
         log_record(log, {"_config": config})
-        for epoch in range(cfg.n_epochs):
-            t0 = time.perf_counter()
-            rec = run_epoch(step, state, data, cfg.batch_size, generator, draw or draw_step)
-            step_seconds += time.perf_counter() - t0  # run_epoch ends with a device read
-            msg = on_epoch(epoch, rec)
+        for epoch in range(start, cfg.n_epochs):
+            with timer.section("step"):  # run_epoch ends with a device read
+                rec = run_epoch(step, state, data, cfg.batch_size, generator,
+                                draw or draw_step)
+            with timer.section("validate"):
+                msg = on_epoch(epoch, rec)
+            if tracker is not None:
+                with timer.section("checkpoint"):
+                    if tracker.update(args, epoch, rec, best):
+                        msg += " [best]"
+            stop = guard is not None and guard.update(epoch, rec)
+            if stop:
+                rec["flip_guard_stop"] = 1.0
             rec["epoch"] = epoch
             log_record(log, rec, _step=epoch)
             print(f"epoch {epoch}: {msg}", flush=True)
-    return step_seconds, rec
+            if stop or due(args, epoch, cfg.n_epochs, "save_every"):
+                with timer.section("checkpoint"):
+                    if tracker is not None:
+                        tracker.flush(args)
+                    save(stop or epoch + 1 == cfg.n_epochs)
+                    save_run(args, stage, state, generator, epoch + 1)
+            if stop:
+                break
+        if tracker is not None:
+            with timer.section("checkpoint"):
+                tracker.flush(args)
+        steps = state.step - step0
+        report = timer.report(steps * cfg.batch_size)
+    if tracker is not None and tracker.gate_metric and tracker.gated_out:
+        print(f"[links_tpu_torch] --select-by {args.select_by}: the flip alarm vetoed "
+              f"{tracker.gated_out} improving epoch(s) (val_tilt >= 0)"
+              + ("; no _best saved: the run looks depth-flipped throughout"
+                 if tracker.epoch < 0 else ""), file=sys.stderr)
+    return TrainResult(timer.tot.get("step", 0.0), steps, rec, report)
 
 
-def print_summary(cfg, state, device, step_seconds: float, rec: dict):
+def print_summary(cfg, state, device, result: TrainResult):
     """The trainers' one-line JSON summary: epochs, steps, device, the
-    seconds spent in the epoch loops, poses/s and the last epoch's record."""
-    poses = state.step * cfg.batch_size
+    seconds spent in this run's steps, poses/s, the timer's report and the
+    last epoch's record."""
+    poses = result.steps * cfg.batch_size
     print(json.dumps({
         "epochs": cfg.n_epochs, "steps": state.step, "batch": cfg.batch_size,
-        "device": str(device), "seconds": round(step_seconds, 4),
-        "poses_per_sec": round(poses / step_seconds, 1) if step_seconds > 0 else None,
-        "last": {k: v for k, v in rec.items() if k != "epoch"},
+        "device": str(device), "seconds": round(result.seconds, 4),
+        "poses_per_sec": round(poses / result.seconds, 1) if result.seconds > 0 else None,
+        **result.report,
+        "last": {k: v for k, v in result.rec.items() if k != "epoch"},
     }))

@@ -13,6 +13,10 @@ keypoints are zeroed, the pose is lifted by the four lifters (left, right,
 legs, torso) and the missing 3D part is infilled by the scenario's stage-4
 completer (``<model-dir>/occlusion_model_weights/``).
 
+From ``--model-dir`` the trainers' best-epoch weights (``*_best.pt``,
+``occlusion_model_weights_best/``) are read when they exist, unless
+``--use-final``; ``--use-best`` requires them.
+
 Output: ``--out`` .npz with ``poses_3d`` (N, 3, 17) and the ``poses_2d``
 echo, plus one JSON summary line on stdout (count, wall time, poses/sec).
 
@@ -129,10 +133,10 @@ def main(argv=None):
     parser.add_argument("--out", required=True, help="output .npz path")
     parser.add_argument("--limit", type=int, default=None,
                         help="lift only the first N poses")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device to compute on (cuda, cuda:1, cpu)")
+    C.add_device_flag(parser)
     C.add_common_flags(parser)
     C.add_lr_pt_flags(parser)
+    C.add_use_best_flag(parser)
     args = parser.parse_args(argv)
     device = C.resolve_device(args.device)
 

@@ -5,9 +5,11 @@ them.
 
 Inputs: the dataset pickle (``--data``; the train split only). Outputs:
 ``<model-dir>/full_flow.pt`` in FrEIA's layout (its fixed mixing matrices
-included), written every due epoch (``--save-every``, default 1; always the
-final one), a JSONL log, one line per epoch on stdout and a one-line JSON
-summary.
+included) and the run checkpoint ``<model-dir>/full_flow_run.pt``, written
+every due epoch (``--save-every``, default 1; always the final one), a JSONL
+log, one line per epoch on stdout and a one-line JSON summary. ``--resume``
+goes on from the run checkpoint; without it a run first removes both
+files.
 
 Usage:
     python -m links_tpu_torch.cli.train_full_pose_norm_flow --data data/h36m_data.pkl \\
@@ -53,17 +55,15 @@ def main(argv=None):
     data = train_data.poses_2d.to(device)
     model_dir = Path(args.model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
+    C.clear_stage_artifacts(args, "full_flow", [C.FULL_FLOW])
 
-    def on_epoch(epoch, rec):
-        if C.due(args, epoch, cfg.n_epochs, "save_every"):
-            save_flow_pt(flow, model_dir / f"{C.FULL_FLOW}.pt")
-        return " ".join(f"{k}={v:.4f}" for k, v in rec.items())
-
-    step_seconds, rec = C.run_training(
+    result = C.run_training(
         args, cfg, step, state, data, gen, "full_pose_norm_flow",
         {"learning_rate": cfg.optim.learning_rate, "BATCH_SIZE": cfg.batch_size,
-         "N_epochs": cfg.n_epochs, "num_keypoints": cfg.num_keypoints}, on_epoch, draw_noise)
-    C.print_summary(cfg, state, device, step_seconds, rec)
+         "N_epochs": cfg.n_epochs, "num_keypoints": cfg.num_keypoints},
+        lambda epoch, rec: " ".join(f"{k}={v:.4f}" for k, v in rec.items()), draw_noise,
+        stage="full_flow", save=lambda final: save_flow_pt(flow, model_dir / f"{C.FULL_FLOW}.pt"))
+    C.print_summary(cfg, state, device, result)
     return state
 
 

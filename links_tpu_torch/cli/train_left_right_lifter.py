@@ -9,8 +9,13 @@ Inputs: the dataset pickle (``--data``) and the frozen flows
 ``<model-dir>/{full_flow,flow_left,flow_right}.pt`` in FrEIA's layout (the
 port's flow trainers write them, the JAX ones with ``--save-pt``). Outputs:
 ``<model-dir>/{left,right}_side_lifter_final.pt`` in the reference layout
-(``links_tpu_torch.cli.lift --model-dir`` serves them), a JSONL log, one
-line per epoch on stdout and a one-line JSON summary.
+(``links_tpu_torch.cli.lift --model-dir`` serves them) at the end, the best
+validated epoch's pair ``{left,right}_side_lifter_best.pt`` and its record
+``lifter_left_right_best.meta.json`` (``--select-by``), the run checkpoint
+``left_right_run.pt`` every ``--save-every`` epochs (``--resume`` goes on
+from it), a JSONL log, one line per epoch on stdout and a one-line JSON
+summary. ``--flip-guard K`` stops the run after K depth-flipped validation
+epochs.
 
 Usage:
     python -m links_tpu_torch.cli.train_left_right_lifter --data data/h36m_data.pkl \\
@@ -20,12 +25,9 @@ Usage:
 from __future__ import annotations
 
 import argparse
-from pathlib import Path
-
 import torch
 
 from links_tpu_torch import metrics
-from links_tpu_torch.ckpt.torch_io import save_lifter_pt
 from links_tpu_torch.cli import _common as C
 from links_tpu_torch.config import LifterTrainConfig
 from links_tpu_torch.core.nn import F32
@@ -60,12 +62,12 @@ def main(argv=None):
         description="Stage 3a: train the left/right side lifters (PyTorch port)")
     C.add_lifter_flags(parser)
     parser.add_argument("--attention", action="store_true", help="(not yet ported)")
-    parser.add_argument("--select-by", default=None, help="(not yet ported)")
-    parser.add_argument("--flip-guard", type=int, default=None, help="(not yet ported)")
+    C.add_select_by_flag(parser)
+    C.add_flip_guard_flag(parser)
     C.add_common_flags(parser)
     C.add_train_flags(parser, bf16_opt_state_default=True, nll_cap_default=500.0)
     args = parser.parse_args(argv)
-    C.refuse_unported(args, C.UNPORTED_LIFTER_FLAGS + ("attention", "flip_guard"))
+    C.refuse_unported(args, C.UNPORTED_TRAIN_FLAGS + ("attention",))
     device = C.resolve_device(args.device)
 
     cfg = C.resolve_cfg(args, LifterTrainConfig(
@@ -97,15 +99,17 @@ def main(argv=None):
                     f" n-mpjpe_l={rec['mpjpe_scaled_left']:.2f}")
         return msg
 
-    step_seconds, rec = C.run_training(
+    C.clear_stage_artifacts(args, "left_right", [C.LIFTER_LR])
+    result = C.run_training(
         args, cfg, step, state, data, gen, "left_right_lifter",
         {"learning_rate": cfg.optim.learning_rate, "BATCH_SIZE": cfg.batch_size,
-         "N_epochs": cfg.n_epochs, "weight_bl": cfg.weight_bl, "depth": cfg.depth}, on_epoch)
-    model_dir = Path(args.model_dir)
-    model_dir.mkdir(parents=True, exist_ok=True)
-    for lifter, name in zip((stacked.left, stacked.right), C.LR_LIFTERS):
-        save_lifter_pt(lifter, model_dir / name)
-    C.print_summary(cfg, state, device, step_seconds, rec)
+         "N_epochs": cfg.n_epochs, "weight_bl": cfg.weight_bl, "depth": cfg.depth}, on_epoch,
+        stage="left_right",
+        save=lambda final: final and C.save_artifact(args, C.LIFTER_LR, stacked),
+        tracker=C.BestTracker(C.select_metric(args, "pa_mean"), C.select_gate(args),
+                              deferred=True),
+        best={C.LIFTER_LR: stacked}, guard=C.FlipGuard(args.flip_guard))
+    C.print_summary(cfg, state, device, result)
     return state
 
 

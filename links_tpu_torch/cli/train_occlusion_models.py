@@ -12,8 +12,13 @@ reference layout: ``<model-dir>/{left,right}_side_lifter_final.pt`` (or the
 ``<model-dir>/{leg,torso}_lifter.pt`` (the port's stage-3 trainers write
 them). Outputs: ``<model-dir>/occlusion_model_weights/<name>_estimator.pt``
 for the eight completers, in the reference layout (``links_tpu_torch.cli.lift
---scenario`` serves them), a JSONL log, one line per epoch on stdout and a
-one-line JSON summary.
+--scenario`` serves them) at the end, the best validated epoch's in
+``occlusion_model_weights_best/`` with its record
+``occlusion_models_best.meta.json`` (``--select-by pa|mse``), the run
+checkpoint ``occlusion_run.pt`` every ``--save-every`` epochs (``--resume``
+goes on from it), a JSONL log, one line per epoch on stdout and a one-line
+JSON summary. The frozen lifters are read as ``--use-best``/``--use-final``
+say (by default their best epoch's when the 3a/3b trainers wrote one).
 
 Usage:
     python -m links_tpu_torch.cli.train_occlusion_models --data data/h36m_data.pkl \\
@@ -29,7 +34,6 @@ import functools
 import torch
 
 from links_tpu_torch import metrics
-from links_tpu_torch.ckpt.torch_io import save_completer_pt
 from links_tpu_torch.cli import _common as C
 from links_tpu_torch.config import OcclusionTrainConfig
 from links_tpu_torch.core.nn import F32
@@ -79,16 +83,19 @@ def main(argv=None):
                              "clean), in the root-centered reconstruction space's units")
     parser.add_argument("--weight-decay", type=float, default=None,
                         help="override Adam's weight decay for this stage (default 1e-5)")
-    parser.add_argument("--select-by", default=None,
-                        help="best-checkpoint criterion (not yet ported)")
-    parser.add_argument("--use-best", action="store_true",
-                        help="read the lifters' _best weights (not yet ported)")
+    parser.add_argument("--select-by", choices=["pa", "mse"], default="pa",
+                        help="criterion of the best epoch: 'pa' = the mean scenario PA-MPJPE "
+                             "against the test split's 3D ground truth (used for selection "
+                             "only); 'mse' = the completers' loss against the frozen "
+                             "lifters' pseudo-3D of the test split's 2D, without ground "
+                             "truth. Both are logged every validation epoch")
     C.add_lifter_flags(parser)
     C.add_common_flags(parser)
     C.add_train_flags(parser)
     C.add_lr_pt_flags(parser)
+    C.add_use_best_flag(parser)
     args = parser.parse_args(argv)
-    C.refuse_unported(args, C.UNPORTED_LIFTER_FLAGS + ("use_best",))
+    C.refuse_unported(args)
     device = C.resolve_device(args.device)
 
     cfg = C.resolve_cfg(args, OcclusionTrainConfig(
@@ -118,16 +125,18 @@ def main(argv=None):
             msg += f" pa_left={rec['pa_left']:.2f} pa_torso={rec['pa_torso']:.2f}"
         return msg
 
-    step_seconds, rec = C.run_training(
+    C.clear_stage_artifacts(args, "occlusion", [C.OCCLUSION])
+    result = C.run_training(
         args, cfg, step, state, data, gen, "occlusion_models",
         {"num_bases": args.num_bases, "learning_rate": cfg.optim.learning_rate,
          "BATCH_SIZE": cfg.batch_size, "N_epochs": cfg.n_epochs, "depth": cfg.depth,
-         "n_rot": cfg.n_rot, "input_noise": cfg.input_noise}, on_epoch, draw)
-    for name, completer in completers.items():
-        path = C.completer_path(args, name)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        save_completer_pt(completer, path)
-    C.print_summary(cfg, state, device, step_seconds, rec)
+         "n_rot": cfg.n_rot, "input_noise": cfg.input_noise}, on_epoch, draw,
+        stage="occlusion",
+        save=lambda final: final and C.save_artifact(args, C.OCCLUSION, completers),
+        tracker=C.BestTracker("val_mse" if args.select_by == "mse" else "pa_scenario_mean",
+                              deferred=True),
+        best={C.OCCLUSION: completers})
+    C.print_summary(cfg, state, device, result)
     return state
 
 

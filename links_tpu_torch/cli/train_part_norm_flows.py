@@ -5,9 +5,11 @@ links_tpu/cli/train_part_norm_flows.py).
 
 Inputs: the dataset pickle (``--data``; the train split only) and
 ``<model-dir>/full_flow.pt`` (stage 1). Outputs:
-``<model-dir>/flow_{left,right,legs,torso}.pt`` in FrEIA's layout, written
-every due epoch (``--save-every``, default 1; always the final one), a JSONL
-log, one line per epoch on stdout and a one-line JSON summary.
+``<model-dir>/flow_{left,right,legs,torso}.pt`` in FrEIA's layout and the
+run checkpoint ``<model-dir>/part_flows_run.pt``, written every due epoch
+(``--save-every``, default 1; always the final one), a JSONL log, one line
+per epoch on stdout and a one-line JSON summary. ``--resume`` goes on from
+the run checkpoint; without it a run first removes these files.
 
 Usage:
     python -m links_tpu_torch.cli.train_part_norm_flows --data data/h36m_data.pkl \\
@@ -58,18 +60,18 @@ def main(argv=None):
     data = train_data.poses_2d.to(device)
     model_dir = Path(args.model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
+    C.clear_stage_artifacts(args, "part_flows", list(ARTIFACTS.values()))
 
-    def on_epoch(epoch, rec):
-        if C.due(args, epoch, cfg.n_epochs, "save_every"):
-            for name, artifact in ARTIFACTS.items():
-                save_flow_pt(getattr(parts, name), model_dir / f"{artifact}.pt")
-        return f"loss={rec['loss']:.4f}"
+    def save(final):
+        for name, artifact in ARTIFACTS.items():
+            save_flow_pt(getattr(parts, name), model_dir / f"{artifact}.pt")
 
-    step_seconds, rec = C.run_training(
+    result = C.run_training(
         args, cfg, step, state, data, gen, "part_norm_flows",
         {"learning_rate": cfg.optim.learning_rate, "BATCH_SIZE": cfg.batch_size,
-         "N_epochs": cfg.n_epochs}, on_epoch, draw_noise)
-    C.print_summary(cfg, state, device, step_seconds, rec)
+         "N_epochs": cfg.n_epochs}, lambda epoch, rec: f"loss={rec['loss']:.4f}", draw_noise,
+        stage="part_flows", save=save)
+    C.print_summary(cfg, state, device, result)
     return state
 
 

@@ -39,10 +39,15 @@ class PoseDataset:
         return int(self.poses_3d.shape[0])
 
 
+def read_pickle(file_name) -> dict:
+    """The whole reference-schema pickle, ``{subject: {key: array}}``."""
+    with open(file_name, "rb") as f:
+        return pickle.load(f)
+
+
 def _load_pickle_subjects(file_name, subjects: Sequence[str], pose_3d_key: str,
                           use_gt: bool = True, complete_only: bool = False):
-    with open(file_name, "rb") as f:
-        data = pickle.load(f)
+    data = read_pickle(file_name)
     # detector keypoints: a 'poses_2d_pred' array when every subject has one,
     # else plain 'poses_2d'
     key_2d = "poses_2d"

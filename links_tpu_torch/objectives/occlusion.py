@@ -32,7 +32,13 @@ from links_tpu_torch.core.skeleton import (
     split_data_left_right_3d,
     split_data_legs_torso,
 )
-from links_tpu_torch.objectives.lifter import globalize, pin_root, reconstruct_3d
+from links_tpu_torch.models.lifters import StackedLifter
+from links_tpu_torch.objectives.lifter import (
+    globalize,
+    lift_left_right_eval,
+    pin_root,
+    reconstruct_3d,
+)
 
 # the completer that infills each scenario's hidden part
 SCENARIO_COMPLETER = {"la": "left_arm", "ra": "right_arm", "ll": "left_leg", "rl": "right_leg",
@@ -210,3 +216,23 @@ def drop_keypoints(poses_2d: torch.Tensor, joints) -> torch.Tensor:
     mask = torch.ones(NUM_JOINTS, dtype=poses_2d.dtype, device=poses_2d.device)
     mask[list(joints)] = 0.0
     return (poses_2d.reshape(-1, 2, NUM_JOINTS) * mask).reshape(-1, 34)
+
+
+def dropout_eval_poses(completers, lifters: dict, test_2d: torch.Tensor, depth: float = 10.0,
+                       policy: Policy = F32,
+                       choice: str = "right") -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
+    """Lifting under simulated 2D keypoint dropout: for each scenario of
+    ``DROPOUT_SCENARIO_JOINTS`` its keypoints are zeroed, the partial pose is
+    lifted by the lifters that do not read them and the scenario's completer
+    infills the missing 3D part (``occlusion_validation_poses``). -> {scenario:
+    (recovered (B, 51), naive (B, 51))}, ``naive`` being the plain left/right
+    lift of the same corrupted 2D (shared joints from ``choice``): the
+    no-completion baseline."""
+    stacked = StackedLifter(lifters["left"], lifters["right"])
+    out = {}
+    for name, joints in DROPOUT_SCENARIO_JOINTS.items():
+        occluded = drop_keypoints(test_2d, joints)
+        recovered = occlusion_validation_poses(completers, lifters, occluded, depth, policy,
+                                               scenarios=(name,))[name]
+        out[name] = (recovered, lift_left_right_eval(stacked, occluded, depth, choice, policy))
+    return out

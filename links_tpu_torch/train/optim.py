@@ -15,6 +15,8 @@ ops.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -71,3 +73,29 @@ class Adam:
         dtype = self.mu[0].dtype
         self.mu = [m.to(dtype) for m in mu]
         self.nu = [v.to(dtype) for v in nu]
+
+    def state_dict(self) -> dict:
+        """The moments at their stored dtype, on the CPU, and the update count."""
+        return {"mu": [m.detach().cpu() for m in self.mu],
+                "nu": [v.detach().cpu() for v in self.nu], "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore what ``state_dict`` returned, onto the parameters' devices.
+        Moments stored at another dtype than the configured one are cast to
+        it, with a warning: that changes the optimizer's recipe mid-run."""
+        moments = [*state["mu"], *state["nu"]]
+        shapes = [p.shape for p in self.params] * 2
+        if len(moments) != len(shapes) or any(m.shape != s for m, s in zip(moments, shapes)):
+            raise ValueError("Adam state does not match the parameters: "
+                             f"{len(state['mu'])} moments for {len(self.params)} parameters")
+        dtype = torch.bfloat16 if self.cfg.bf16_moments else torch.float32
+        drift = [m.dtype for m in moments if m.dtype != dtype]
+        if drift:
+            flag = "--no-bf16-opt-state" if dtype == torch.bfloat16 else "--bf16-opt-state"
+            warnings.warn(f"resuming: {len(drift)} Adam moments change dtype across the resume "
+                          f"boundary (checkpoint {drift[0]} -> configured {dtype}), which "
+                          f"changes the optimizer's recipe mid-run; pass {flag} to resume "
+                          f"with the checkpoint's own", stacklevel=2)
+        self.mu = [m.to(device=p.device, dtype=dtype) for m, p in zip(state["mu"], self.params)]
+        self.nu = [v.to(device=p.device, dtype=dtype) for v, p in zip(state["nu"], self.params)]
+        self.count = int(state["count"])

@@ -101,6 +101,8 @@ _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import links_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(links_tpu_torch.__path__, "links_tpu_torch.")]
+assert {"links_tpu_torch.cli.eval_h36m", "links_tpu_torch.cli.run_pipeline",
+        "links_tpu_torch.ckpt.run_io"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
