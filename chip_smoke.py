@@ -34,10 +34,19 @@ Phases, each fatal on failure:
      eval's device math on the card against the CPU on 512 test poses; the
      3a trainer resumed after one epoch against two epochs straight (within
      2 lr, bitwise or not reported); ``links_tpu_torch.cli.run_pipeline
-     --stages eval``; and the metrics' batched SVD at 500,000 poses, one
-     call against chunks;
-  5. time each stage's training step at batch 256 and then K2, before any
-     torch.profiler session (one often leaves the process slower); then the
+     --stages eval``; int8 serving: ``lift --quant int8`` and ``int8-static``
+     of the 3a and 3b pairs and ``lift --scenario --quant int8`` (no K1 or
+     K2 launch, each against the CPU), ``eval_h36m --quant``; the serving
+     daemon ``links_tpu_torch.cli.serve`` in this process (coalesced under 8
+     concurrent clients, --fused on K2, --no-coalesce; JSON and .npy
+     requests against lift, a malformed body answered with 400); stage 3a
+     --attention (one step on the card against the CPU with its K1 calls
+     counted exactly, one epoch of the trainer, lift and eval of what it
+     wrote, lift --fused refused); and the metrics' batched SVD at 500,000
+     poses, one call against chunks;
+  5. time each stage's training step at batch 256, then K2, then the
+     serving daemon's requests/s and lift's poses/s by serving flag, before
+     any torch.profiler session (one often leaves the process slower); then the
      3a and stage-4 steps' profiles, and each kernel, its plain version, a library
      yardstick (the same function as torch calls replayed from a CUDA graph)
      and its bound. Kernels are timed on the device from a CUDA graph of
@@ -61,7 +70,10 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 from typing import Callable, NamedTuple
 
@@ -73,7 +85,7 @@ from torch.profiler import ProfilerActivity, profile
 from links_tpu_torch import metrics
 from links_tpu_torch.ckpt.torch_io import load_lifter_pt, save_lifter_pt
 from links_tpu_torch.cli import _common as C
-from links_tpu_torch.cli import eval_h36m, lift, run_pipeline
+from links_tpu_torch.cli import eval_h36m, lift, run_pipeline, serve
 from links_tpu_torch.cli._common import LR_LIFTERS
 from links_tpu_torch.cli import train_full_pose_norm_flow as flow1_cli
 from links_tpu_torch.cli import train_left_right_lifter as train_cli
@@ -92,6 +104,7 @@ from links_tpu_torch.core.nn import BF16, F32, full_f32_matmuls
 from links_tpu_torch.core.skeleton import split_data_left_right
 from links_tpu_torch.data.synthetic import generate_poses, write_synthetic_pickle
 from links_tpu_torch.flows import Flow
+from links_tpu_torch.models.attention import AttentionLifter
 from links_tpu_torch.models.completers import COMPLETER_SPECS, Completers
 from links_tpu_torch.models.lifters import (
     CHAIN,
@@ -174,6 +187,24 @@ K1_PER_STEP = {"stage 1": (0, 0, 0, 0), "stage 2": (0, 0, 0, 0),
                "3a": (K1_FWD_PER_STEP, K1_BWD_PER_STEP, K1_CASTS_PER_STEP, K1_CASTS_PER_STEP),
                "3b": (K1_FWD_PER_STEP, K1_BWD_PER_STEP, K1_CASTS_PER_STEP, K1_CASTS_PER_STEP),
                "stage 4": (*K1_STAGE4, *K1_STAGE4_CASTS)}
+# 3a --attention: the attention lifter has 5 blocks (res_common, 2 pose, 2
+# angle): 5 x 2 lifters x (lift + re-lift) forward, all but the re-lift's 2
+# angle blocks per lifter backward, each block's two weights cast once per step
+K1_PER_STEP["3a attention"] = (5 * 2 * 2, 5 * 2 * 2 - 2 * 2, 5 * 2 * 2, 5 * 2 * 2)
+# A quantized lift on the card against the same lift on the CPU, on the first
+# QUANT_CPU_ROWS poses: the int8 product is exact and the rest is the same f32
+# elementwise sequence, so within QUANT_CARD_TOL (rtol = atol; bitwise equality
+# is reported)
+QUANT_CARD_TOL = 1e-5
+QUANT_CPU_ROWS = 1024
+QUANT_SCENARIO = "ll"
+# the serving daemon under load: SERVE_CLIENTS concurrent clients, each
+# sending requests of SERVE_POSES poses, SERVE_CHECK_ROUNDS requests each for
+# the checks and SERVE_TIMED_ROUNDS for the times
+SERVE_CLIENTS = 8
+SERVE_POSES = 50
+SERVE_CHECK_ROUNDS = 5
+SERVE_TIMED_ROUNDS = 25
 # eval's device math on the card against the CPU (f32 policy) on this many
 # test poses: continuous metrics within EVAL_RTOL, counted ones within one
 # count (a distance a last bit away from a threshold may land on its other
@@ -190,9 +221,16 @@ STEP_CHECK_BATCH = 64
 HIDDEN = 1024
 FLOW_HIDDEN = 1024        # the flow trainers' default width
 FLOW_BLOCKS = 8
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense bf16 FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s and
+# f32 FLOP/s outside the tensor cores (the f32 policy: TF32 off).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+# K1's f32 policy multiplies on the tensor cores all the same: each f32
+# operand is three bf16 terms and a product sums the 6 term products
+# i + j < 3 (ops/csrc/resblock.cu), so its own method's peak is the bf16
+# peak over 6. Its share of the F32_FLOPS bound is not a roofline share.
+K1_F32_METHOD_FLOPS = BF16_FLOPS / 6
 
 
 def _log(msg):
@@ -245,9 +283,10 @@ def _graphed(fn):
     return graph, out
 
 
-def _bound(nbytes: float, flops: float):
-    """The least time for work of ``nbytes`` and ``flops``: (ms, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def _bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    """The least time for work of ``nbytes`` and ``flops`` at ``peak`` FLOP/s:
+    (ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -543,8 +582,10 @@ def _stage(name: str, seed: int, batch: int) -> Stage:
                      functools.partial(steps.draw_occlusion, n_rot=cfg.n_rot,
                                        input_noise=cfg.input_noise))
     cfg = LifterTrainConfig(nll_cap=500.0, batch_size=batch, optim=OptimConfig(bf16_moments=True))
-    if name == "3a":
-        model = StackedLifter(Lifter(11, HIDDEN, generator=g), Lifter(11, HIDDEN, generator=g))
+    if name in ("3a", "3a attention"):
+        make = AttentionLifter if name == "3a attention" else Lifter
+        model = StackedLifter(make(11, hidden=HIDDEN, generator=g),
+                              make(11, hidden=HIDDEN, generator=g))
         return Stage(model, tuple(flow(d) for d in (34, 22, 22)), cfg,
                      lambda fr, cfg: steps.build_left_right_grads(LifterFrozen(*fr), cfg),
                      lambda fr, cfg: steps.build_left_right_step(LifterFrozen(*fr), cfg),
@@ -654,14 +695,16 @@ def _train(module, common: list, name: str):
     return state, summary, counts
 
 
-def _lift(common: list, flags: list, out: Path, name: str) -> tuple[np.ndarray, dict]:
-    """One call of the serving entry point, its kernel launches counted from 0."""
+def _lift(common: list, flags: list, out: Path, name: str,
+          n: int | None = None) -> tuple[np.ndarray, dict]:
+    """One call of the serving entry point, its kernel launches counted from 0;
+    it must lift ``n`` poses (default: the test split's)."""
+    n = n or 2 * TEST_POSES
     _reset_counts()
     t0 = time.perf_counter()
     pred = lift.main(common + flags + ["--out", str(out)])
     counts = _counts()
     SECONDS[f"lift {name}"] = time.perf_counter() - t0
-    n = 2 * TEST_POSES
     if pred.shape != (n, 3, 17) or not np.isfinite(pred).all():
         raise AssertionError(f"lift {name}: expected finite ({n}, 3, 17) poses, got {pred.shape}")
     return pred, counts
@@ -839,7 +882,7 @@ def _eval(data: Path, models: Path, flags: list, name: str) -> tuple[dict, dict]
     SECONDS[f"eval {name}"] = time.perf_counter() - t0
     if json.loads(out.getvalue().strip().splitlines()[-1]) != results:
         raise AssertionError(f"eval {name}: its JSON line is not its results")
-    bad = [k for k, v in results.items() if not isinstance(v, str) and not np.isfinite(v)]
+    bad = [k for k, v in results.items() if isinstance(v, float) and not np.isfinite(v)]
     if bad:
         raise AssertionError(f"eval {name}: non-finite {bad}")
     return results, counts
@@ -1000,6 +1043,257 @@ def phase_pipeline_eval(data: Path, models: Path) -> dict:
     return counts
 
 
+def phase_quant(data: Path, models: Path, tmp: Path) -> dict:
+    """``lift --quant int8`` and ``--quant int8-static`` of the trained 3a
+    pair and of the 3b pair (--mode leg_torso), and ``lift --scenario
+    QUANT_SCENARIO --quant int8``: no residual-block or fused kernel launch
+    (a quantized block composes its int8 linears), and each against the same
+    lift on the CPU on its first QUANT_CPU_ROWS poses. Then ``eval_h36m
+    --quant int8`` and ``--occlusion --quant int8-static``, which records the
+    occlusion paths' fallback to dynamic scales. -> counts by path."""
+    counts = {}
+    served = ["--data", str(data), "--model-dir", str(models), "--batch-size", str(MAIN_BATCH)]
+    for name, flags in (("int8", ["--quant", "int8"]),
+                        ("int8-static", ["--quant", "int8-static"]),
+                        ("--mode leg_torso int8", ["--mode", "leg_torso", "--quant", "int8"]),
+                        ("--mode leg_torso int8-static",
+                         ["--mode", "leg_torso", "--quant", "int8-static"]),
+                        (f"--scenario {QUANT_SCENARIO} int8",
+                         ["--scenario", QUANT_SCENARIO, "--quant", "int8"])):
+        path = f"lift {name}"
+        card, counts[path] = _lift(served + ["--device", "cuda"], flags, tmp / "q.npz", name)
+        if any(counts[path].values()):
+            raise AssertionError(f"{path} launched a kernel: {counts[path]}")
+        cpu, _ = _lift(served + ["--device", "cpu", "--limit", str(QUANT_CPU_ROWS)], flags,
+                       tmp / "q_cpu.npz", f"{name} (CPU)", n=QUANT_CPU_ROWS)
+        card, err = card[:QUANT_CPU_ROWS], np.abs(card[:QUANT_CPU_ROWS] - cpu)
+        if (err > QUANT_CARD_TOL + QUANT_CARD_TOL * np.abs(cpu)).any():
+            raise AssertionError(f"{path} on the card differs from the CPU by {err.max():.3e}")
+        err, bitwise = float(err.max()), bool(np.array_equal(card, cpu))
+        _log(f"[quant] {path}: finite ({2 * TEST_POSES}, 3, 17), no K1 or K2 launch; card vs "
+             f"CPU on {QUANT_CPU_ROWS} poses: max abs err {err:.3e} (bound rtol = atol = "
+             f"{QUANT_CARD_TOL}), {'bitwise equal' if bitwise else 'not bitwise equal'}")
+    for name, flags in (("--quant int8", ["--quant", "int8", "--json"]),
+                        ("--occlusion --quant int8-static",
+                         ["--occlusion", "--quant", "int8-static", "--json"])):
+        results, counts[f"eval {name}"] = _eval(data, models, flags, name)
+        if any(counts[f"eval {name}"].values()):
+            raise AssertionError(f"eval {name} launched a kernel: {counts[f'eval {name}']}")
+        fallback = results.get("quant_fallback_dynamic")
+        if fallback != (["lifters", "completers"] if "occlusion" in name else None):
+            raise AssertionError(f"eval {name}: quant_fallback_dynamic is {fallback}")
+        _log(f"[quant] eval {name}: pa_mpjpe {results['pa_mpjpe']:.4f}, {len(results)} keys, "
+             f"all finite; quant_fallback_dynamic {fallback}; no K1 or K2 launch")
+    return counts
+
+
+@contextlib.contextmanager
+def _serving(argv: list):
+    """``links_tpu_torch.cli.serve``'s server with ``argv``, on a free port of
+    this host, serving from a thread of this process: -> its URL."""
+    srv = serve.make_server(serve.build_parser().parse_args(argv + ["--port", "0"]))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    host, port = srv.server_address[:2]
+    try:
+        yield f"http://{host}:{port}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    if thread.is_alive():
+        raise AssertionError("the server's thread did not stop")
+
+
+def _post(url: str, data: bytes, content_type: str = "application/json") -> dict:
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": content_type})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _health(base: str) -> dict:
+    with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _clients(base: str, poses: np.ndarray, rounds: int) -> tuple[float, np.ndarray]:
+    """SERVE_CLIENTS concurrent clients, each sending ``rounds`` JSON requests
+    of SERVE_POSES poses (client i's rows of ``poses``). -> (seconds, the
+    answers in the rows' order)."""
+    out = np.zeros((SERVE_CLIENTS, SERVE_POSES, 3, 17), np.float32)
+    errors = []
+
+    def client(i):
+        rows = poses[i * SERVE_POSES:(i + 1) * SERVE_POSES]
+        body = json.dumps({"poses_2d": rows.tolist()}).encode()
+        try:
+            for _ in range(rounds):
+                out[i] = np.asarray(_post(base + "/lift", body)["poses_3d"], np.float32)
+        except Exception as e:  # reported below: every request must be served
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    seconds = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve: not every request was served: {errors}")
+    return seconds, out.reshape(-1, 3, 17)
+
+
+def phase_serve(data: Path, models: Path, tmp: Path) -> dict:
+    """``links_tpu_torch.cli.serve`` on the model directory, in this process,
+    each server's counts set to 0 just before it starts and read after it
+    stops: coalesced (K1's forward, f32): a JSON and a .npy request against
+    ``lift`` of the same poses, SERVE_CLIENTS concurrent clients (fewer
+    device runs than requests), a malformed body answered with 400 and the
+    server alive after it; ``--fused`` (K2) against the plain version (the
+    CPU's ``lift --fused``); ``--no-coalesce``, every request served. ->
+    counts by path."""
+    counts = {}
+    n = SERVE_CLIENTS * SERVE_POSES
+    poses = np.load(tmp / "t_fused.npz")["poses_2d"][:n]
+    np.save(tmp / "serve_poses.npy", poses)
+    base_args = ["--data", str(data), "--model-dir", str(models), "--batch-size",
+                 str(MAIN_BATCH)]
+    raw = ["--raw-2d", str(tmp / "serve_poses.npy")]
+    want, _ = _lift(base_args + ["--device", "cuda"] + raw, [], tmp / "s.npz", "serve reference",
+                    n=n)
+    plain_fused, _ = _lift(base_args + ["--device", "cpu"] + raw, ["--fused"], tmp / "sf.npz",
+                           "serve --fused reference (CPU)", n=n)
+    for path, flags in (("serve", []), ("serve --fused", ["--fused"]),
+                        ("serve --no-coalesce", ["--no-coalesce"])):
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _serving(base_args + ["--device", "cuda", *flags]) as base:
+            _, got = _clients(base, poses, SERVE_CHECK_ROUNDS)
+            detail = ""
+            if path == "serve":
+                one = _post(base + "/lift", json.dumps({"poses_2d": poses.tolist()}).encode())
+                buf = io.BytesIO()
+                np.save(buf, poses.reshape(n, 2, 17))
+                npy = _post(base + "/lift", buf.getvalue(), "application/octet-stream")
+                for name, res in (("JSON", one["poses_3d"]), (".npy", npy["poses_3d"])):
+                    err = _k1_check(f"serve {name} request vs lift", torch.from_numpy(
+                        np.asarray(res, np.float32)), torch.from_numpy(want), "elementwise")
+                    detail += f"{name} request of {n} poses vs lift: max abs err {err:.3e}; "
+                try:
+                    _post(base + "/lift", b'{"poses_2d": [[1.0, 2.0]]')
+                    raise AssertionError("serve answered a malformed body")
+                except urllib.error.HTTPError as e:
+                    if e.code != 400:
+                        raise AssertionError(f"serve answered a malformed body with {e.code}")
+                detail += "malformed body: 400; "
+            health = _health(base)
+        counts[path] = _counts()
+        SECONDS[path] = time.perf_counter() - t0
+        requests = SERVE_CLIENTS * SERVE_CHECK_ROUNDS + (2 if path == "serve" else 0)
+        if health["requests"] != requests or health["errors"] != int(path == "serve"):
+            raise AssertionError(f"{path}: /healthz after the checks: {health}")
+        if path == "serve --fused":
+            err = _check_fused(got, plain_fused, "serve --fused", "scale")
+            detail += (f"vs the plain version (CPU lift --fused) max abs err {err:.3e} "
+                       f"(largest value {np.abs(plain_fused).max():.3e}); ")
+            if counts[path]["fused_sides_forward"] < 1 or counts[path]["res_block_forward"]:
+                raise AssertionError(f"{path} launched {counts[path]}")
+        else:
+            _k1_check(f"{path} concurrent answers vs lift", torch.from_numpy(got),
+                      torch.from_numpy(want), "elementwise")
+            if counts[path]["res_block_forward"] < 1 or counts[path]["fused_sides_forward"]:
+                raise AssertionError(f"{path} launched {counts[path]}")
+        if path == "serve" and not health["device_batches"] < health["requests"]:
+            raise AssertionError(f"serve did not coalesce: {health}")
+        merged = (f"{health['device_batches']} device runs for {health['merged_requests']} "
+                  f"requests, " if health["coalescing"] else "")
+        _log(f"[serve] {path}: {SERVE_CLIENTS} concurrent clients x {SERVE_CHECK_ROUNDS} "
+             f"requests of {SERVE_POSES} poses all served and equal to lift's; {detail}"
+             f"/healthz: {health['requests']} requests, {health['poses']} poses, "
+             f"{health['errors']} errors, {merged}launches {counts[path]}")
+    return counts
+
+
+def phase_attention(data: Path, models: Path, tmp: Path) -> dict:
+    """3a --attention: one training step on the card against the CPU (its K1
+    calls counted exactly); then one epoch of the trainer into a fresh
+    directory (the main path's flows), ``lift`` and ``eval_h36m`` of what it
+    wrote, and ``lift --fused``, which must refuse attention lifters. ->
+    counts by path."""
+    phase_step_card_vs_cpu("3a attention")
+    attn = tmp / "attention"
+    attn.mkdir()
+    for f in ("full_flow.pt", "flow_left.pt", "flow_right.pt"):
+        shutil.copy2(models / f, attn / f)
+    common = ["--data", str(data), "--batch-size", str(MAIN_BATCH), "--device", "cuda",
+              "--model-dir", str(attn)]
+    counts = {}
+    state, summary, counts["3a --attention"] = _train(train_cli, common + ["--attention"],
+                                                      "3a --attention")
+    n_steps = 5 * TRAIN_POSES // MAIN_BATCH
+    fwd, bwd = K1_PER_STEP["3a attention"][:2]
+    k1 = counts["3a --attention"]
+    if not isinstance(state.model.left, AttentionLifter) \
+            or k1["res_block_backward"] != n_steps * bwd \
+            or k1["res_block_forward"] <= n_steps * fwd:
+        raise AssertionError(f"3a --attention: residual-block launches {k1}")
+    _, counts["lift 3a --attention"] = _lift(common, [], tmp / "a.npz", "3a --attention")
+    results, counts["eval 3a --attention"] = _eval(data, attn, ["--json"], "3a --attention")
+    for path in ("lift 3a --attention", "eval 3a --attention"):
+        if counts[path]["res_block_forward"] < 1 or counts[path]["fused_sides_forward"]:
+            raise AssertionError(f"{path} launched {counts[path]}")
+    try:
+        lift.main(common + ["--fused", "--out", str(tmp / "af.npz")])
+        raise AssertionError("lift --fused served attention lifters")
+    except ValueError as e:
+        if "attention lifters" not in str(e):
+            raise
+    _log(f"[attention] 3a --attention: {n_steps} steps, loss {summary['last']['loss']:.4f}, "
+         f"pa_left {summary['last']['pa_left']:.2f}; K1 launches {k1['res_block_forward']} "
+         f"forward + {k1['res_block_backward']} backward; lift of what it wrote: finite, "
+         f"{counts['lift 3a --attention']['res_block_forward']} res_block_forward launches; "
+         f"eval: pa_mpjpe {results['pa_mpjpe']:.4f}, "
+         f"{counts['eval 3a --attention']['res_block_forward']} launches; lift --fused refused")
+    return counts
+
+
+def _lift_rate(served: list, flags: list, out: Path) -> float:
+    """lift's own poses/s (timed after its warm-up chunk) of 2 TEST_POSES poses."""
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        lift.main(served + flags + ["--out", str(out)])
+    return json.loads(text.getvalue().strip().splitlines()[-1])["poses_per_sec"]
+
+
+def phase_serving_times(data: Path, models: Path, tmp: Path, smi: str):
+    """The serving entry points' rates, before any torch.profiler session: the
+    daemon under SERVE_CLIENTS concurrent clients x SERVE_TIMED_ROUNDS
+    requests of SERVE_POSES poses (f32, K1's forward), coalesced and not
+    (after one warm-up round each); ``lift``'s poses/s over its 4096 poses
+    for f32, bf16, --fused, int8 and int8-static."""
+    served = ["--data", str(data), "--model-dir", str(models), "--batch-size", str(MAIN_BATCH),
+              "--device", "cuda"]
+    poses = np.load(tmp / "serve_poses.npy")
+    n_req = SERVE_CLIENTS * SERVE_TIMED_ROUNDS
+    for flags in ([], ["--no-coalesce"]):
+        with _serving(served + flags) as base:
+            _clients(base, poses, 1)
+            seconds, _ = _clients(base, poses, SERVE_TIMED_ROUNDS)
+            health = _health(base)
+        merged = (f"; {health['device_batches']} device runs for {health['merged_requests']} "
+                  f"requests" if health["coalescing"] else "")
+        _log(f"[time] serve{' ' + flags[0] if flags else ''}: {SERVE_CLIENTS} concurrent "
+             f"clients x {SERVE_TIMED_ROUNDS} requests of {SERVE_POSES} poses in "
+             f"{seconds:.4f} s: {n_req / seconds:.1f} requests/s, "
+             f"{n_req * SERVE_POSES / seconds:.1f} poses/s{merged} on {smi}")
+    rates = {name: _lift_rate(served, flags, tmp / "rate.npz") for name, flags in (
+        ("f32", []), ("bf16", ["--policy", "bf16"]), ("--fused", ["--fused"]),
+        ("int8", ["--quant", "int8"]), ("int8-static", ["--quant", "int8-static"]))}
+    _log(f"[time] lift of the trained 3a pair, {2 * TEST_POSES} poses at --batch-size "
+         f"{MAIN_BATCH}, poses/s: " + ", ".join(f"{k} {v}" for k, v in rates.items())
+         + f" on {smi}")
+
+
 def phase_metrics_scale(smi: str):
     """PA-MPJPE and the CPS pair of SCALE_POSES pose pairs on the card (the
     order of H36M's test split): the batched 3x3 SVD as one call and in
@@ -1158,16 +1452,19 @@ def _k1_library(x, w1, b1, w2, b2, dy, dtype):
     return _graphed(fwd)[0], _graphed(bwd)[0]
 
 
-def _k1_bounds(batch: int):
+def _k1_bounds(batch: int, peak: float = BF16_FLOPS):
     """Least times of the block's forward and backward at ``batch`` (f32
-    masters): forward reads x, W1, b1, W2, b2 and writes y, 2 products;
-    backward reads x, dy and the weights and writes dx, dW, db, 6 products
-    (a1 and a2 recomputed)."""
+    masters) at ``peak`` FLOP/s: forward reads x, W1, b1, W2, b2 and writes
+    y, 2 products of 2 B H^2. Backward writes dx, dW, db from dy, x and the
+    weights by the cheaper of two designs: recompute a1 and a2 (6 products,
+    the TPU kernel's), or read a1, h and a2 saved by the forward (4 products:
+    dh, dx, dW1, dW2)."""
     weights = (2 * HIDDEN * HIDDEN + 2 * HIDDEN) * 4
     act = batch * HIDDEN * 4
     product = 2 * batch * HIDDEN * HIDDEN
-    return (_bound(weights + 2 * act, 2 * product),
-            _bound(2 * weights + 3 * act, 6 * product))
+    return (_bound(weights + 2 * act, 2 * product, peak),
+            min(_bound(2 * weights + 3 * act, 6 * product, peak),
+                _bound(2 * weights + 6 * act, 4 * product, peak)))
 
 
 def _kernel_breakdown(fn, calls: int = 20):
@@ -1209,7 +1506,8 @@ def phase_k1_times(smi):
         xs, a1, hs, a2 = K1.kernel_saved(x, *plain_saved, policy)
         lib_f, lib_b = _k1_library(x, w1, b1, w2, b2, dy,
                                    torch.bfloat16 if policy is BF16 else torch.float32)
-        bounds = _k1_bounds(batch)
+        bounds = _k1_bounds(batch, BF16_FLOPS if policy is BF16 else F32_FLOPS)
+        method_bounds = None if policy is BF16 else _k1_bounds(batch, K1_F32_METHOD_FLOPS)
         for which, kernel, plain, lib, (bound, by) in (
                 ("forward", lambda: K1.res_block_forward(x, w1, b1, w2, b2, policy),
                  lambda: K1.res_block_forward_reference(x, w1, b1, w2, b2, policy), lib_f,
@@ -1225,6 +1523,12 @@ def phase_k1_times(smi):
             row["plain_ms"], _ = _time_ms(plain)
             row["library_ms"] = min(r[2][0] for r in runs)
             row["bound_ms"], row["bound_by"] = bound, by
+            method = ""
+            if method_bounds is not None:
+                m_bound, m_by = method_bounds[which == "backward"]
+                row["method_bound_ms"] = m_bound
+                method = (f", at the kernel's own method (bf16 tensor cores, 6 term products "
+                          f"per f32 product) {m_bound:.4f} ms ({m_by})")
             rows[batch, pname, which] = row
             _log(f"[time] res_block_{which} {pname} B={batch} by kernel (ms per launch): "
                  f"{_kernel_breakdown(kernel)[0]}")
@@ -1232,8 +1536,8 @@ def phase_k1_times(smi):
                  f"(CUDA graph, least of {' / '.join(f'{r[0][0]:.4f}' for r in runs)}; eager "
                  f"{eager_ms:.4f} ms, wrapper's host time {host_ms:.4f} ms), "
                  f"plain {row['plain_ms']:.4f} ms, library ({pname} torch calls, CUDA graph) "
-                 f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}); weight cast "
-                 f"{cast_ms:.4f} ms, not in the kernel's time, on {smi}")
+                 f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}, {pname} peak)"
+                 f"{method}; weight cast {cast_ms:.4f} ms, not in the kernel's time, on {smi}")
     return rows, cast_ms
 
 
@@ -1366,11 +1670,15 @@ def main() -> int:
         _timed("eval card vs CPU", phase_eval_card_vs_cpu, data, models)
         counts.update(_timed("resume", phase_resume, data, models, tmp))
         counts.update(_timed("pipeline eval", phase_pipeline_eval, data, models))
-    smi = _smi()
-    _log(smi)
-    _timed("metrics at scale", phase_metrics_scale, smi)
-    _, profiles = _timed("step times", phase_step_times, smi)
-    k2_rows = _timed("K2 times", phase_times, prep, smi)
+        counts.update(_timed("quant checks", phase_quant, data, models, tmp))
+        counts.update(_timed("serve checks", phase_serve, data, models, tmp))
+        counts.update(_timed("attention checks", phase_attention, data, models, tmp))
+        smi = _smi()
+        _log(smi)
+        _timed("metrics at scale", phase_metrics_scale, smi)
+        _, profiles = _timed("step times", phase_step_times, smi)
+        k2_rows = _timed("K2 times", phase_times, prep, smi)
+        _timed("serving times", phase_serving_times, data, models, tmp, smi)
     for name, step in profiles.items():
         _timed(f"step profile {name}", phase_step_profile, name, step, smi)
     k1_rows, cast_ms = _timed("K1 times", phase_k1_times, smi)

@@ -7,7 +7,10 @@ with torch's (out, in) weights, plus ``res_*.{bn1, bn2}.*`` LayerNorm
 tensors that the reference always constructs and no path uses (written at
 their defaults, ignored on load). A completer file also holds the
 reference's constructed-but-unused ``res_common`` block (written as zeros,
-ignored on load). Flows use FrEIA's ``SequenceINN`` layout
+ignored on load). An attention lifter (models/attention.py), which the
+reference lacks, is saved as its state dict, and ``load_lifter_pt`` tells it
+by its ``qkv`` key, as the JAX package's ``lifter_apply`` dispatches on the
+``qkv`` leaf. Flows use FrEIA's ``SequenceINN`` layout
 (flows/coupling.py). Orbax artifacts need jax and are not read here; the JAX
 trainers write ``.pt`` files with ``--save-pt``. Every file is written
 atomically (``atomic_save``).
@@ -22,6 +25,8 @@ import numpy as np
 import torch
 
 from links_tpu_torch.flows.coupling import Flow
+from links_tpu_torch.models import attention
+from links_tpu_torch.models.attention import AttentionLifter
 from links_tpu_torch.models.completers import BLOCKS, Completer
 from links_tpu_torch.models.lifters import CHAIN, Lifter
 
@@ -61,6 +66,20 @@ def lifter_params_from_jax(tree) -> dict[str, torch.Tensor]:
     return _params_from_jax(tree, ("upscale", "downscale", "angles"), CHAIN)
 
 
+def attention_lifter_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """A links_tpu attention-lifter pytree as numpy -> the port's
+    ``AttentionLifter`` state dict: ``qkv``'s (64, 3, heads, 64 / heads)
+    weight becomes torch's (out, in) layout, (3, heads, 64 / heads, 64)."""
+    sd = _params_from_jax(tree, ("embed", "proj", "upscale", "downscale", "angles"),
+                          attention.BLOCKS)
+    w = np.asarray(tree["qkv"]["w"], np.float32)
+    d, _, nh, dh = w.shape
+    sd["qkv.weight"] = torch.from_numpy(w.reshape(d, 3 * d).T.reshape(3, nh, dh, d).copy())
+    sd["qkv.bias"] = _t(tree["qkv"]["b"])
+    sd["pos"] = _t(tree["pos"])
+    return sd
+
+
 def completer_params_from_jax(tree) -> dict[str, torch.Tensor]:
     """A links_tpu completer pytree as numpy -> the port's ``Completer``
     state dict."""
@@ -97,23 +116,33 @@ def _save_pt(module, path, blocks, zero_blocks=()) -> None:
     atomic_save(sd, path)
 
 
-def lifter_from_state_dict(state_dict: dict, device="cpu") -> Lifter:
-    """Build a ``Lifter`` of the state dict's width; ``bn*`` keys are
-    ignored, every other key must match."""
+def lifter_from_state_dict(state_dict: dict, device="cpu") -> Lifter | AttentionLifter:
+    """Build a ``Lifter`` of the state dict's width (``bn*`` keys ignored),
+    or an ``AttentionLifter`` of its joints, heads and width when it holds a
+    ``qkv`` weight; every other key must match."""
+    if "qkv.weight" in state_dict:
+        joints, heads = state_dict["pos"].shape[0], state_dict["qkv.weight"].shape[1]
+        return _module_from_state_dict(
+            lambda hidden, *_: AttentionLifter(joints, heads, hidden), state_dict, (), device)
     return _module_from_state_dict(lambda hidden, in_dim, _: Lifter(in_dim // 2, hidden),
                                    state_dict, (".bn",), device)
 
 
-def load_lifter_pt(path, device="cpu") -> Lifter:
-    """A reference-layout ``.pt`` lifter checkpoint -> ``Lifter``."""
+def load_lifter_pt(path, device="cpu") -> Lifter | AttentionLifter:
+    """A lifter checkpoint -> ``Lifter`` (reference layout) or
+    ``AttentionLifter`` (its state dict)."""
     return lifter_from_state_dict(
         torch.load(path, map_location="cpu", weights_only=True), device)
 
 
-def save_lifter_pt(lifter: Lifter, path) -> None:
-    """Write ``lifter`` as a reference-layout ``.pt``, with the default
-    LayerNorm tensors the reference's loaders expect."""
-    _save_pt(lifter, path, CHAIN)
+def save_lifter_pt(lifter: Lifter | AttentionLifter, path) -> None:
+    """Write ``lifter``: a ``Lifter`` as a reference-layout ``.pt``, with the
+    default LayerNorm tensors the reference's loaders expect; an
+    ``AttentionLifter`` as its state dict."""
+    if isinstance(lifter, AttentionLifter):
+        atomic_save({k: v.detach().cpu().clone() for k, v in lifter.state_dict().items()}, path)
+    else:
+        _save_pt(lifter, path, CHAIN)
 
 
 def completer_from_state_dict(state_dict: dict, device="cpu") -> Completer:

@@ -461,6 +461,76 @@ def load_completers(args, device):
     return torch.nn.ModuleDict({name: load_completer_pt(p, device) for name, p in paths.items()})
 
 
+def maybe_quantize(models, args):
+    """Apply the --quant flag to a loaded model, or to a dict of them (the
+    four lifters): int8 weights with dynamic activation scales
+    (ops/quant.py), or the model unchanged. ``int8-static`` needs a
+    calibration forward of the model family (``quantize_lr``,
+    ``quantize_leg_torso``); models routed here under it serve dynamic
+    scales, as in the JAX package."""
+    if getattr(args, "quant", None) not in ("int8", "int8-static"):
+        return models
+    from links_tpu_torch.ops.quant import quantize_params
+
+    if isinstance(models, dict):
+        return {k: quantize_params(m) for k, m in models.items()}
+    return quantize_params(models)
+
+
+def _calib_poses(args) -> torch.Tensor:
+    """The calibration rows of --quant int8-static: the first --calib-rows
+    normalized 2D poses of the TRAIN split (activation ranges are not fit on
+    the evaluation data), on the CPU."""
+    rows = int(getattr(args, "calib_rows", 1024) or 1024)
+    return load_train(args).poses_2d[:rows].cpu()
+
+
+def _report_static(n_static: int, n_dynamic: int, rows: int):
+    print(f"[links_tpu_torch] int8-static: {n_static} linears calibrated on {rows} train "
+          f"rows, {n_dynamic} dynamic fallback", file=sys.stderr)
+
+
+def static_quant_lr(args, stacked):
+    """--quant int8-static for the (left, right) serving pair: each side
+    calibrated on its half of the calibration poses (f32, on the CPU)."""
+    from links_tpu_torch.core.skeleton import split_data_left_right
+    from links_tpu_torch.ops.quant import quantize_stacked_static
+
+    calib = _calib_poses(args)
+    sides = split_data_left_right(calib)
+    q, ns, nd = quantize_stacked_static(stacked, lambda host, i: host(sides[i]))
+    _report_static(ns, nd, calib.shape[0])
+    return q
+
+
+def static_quant_leg_torso(args, legs, torso):
+    """--quant int8-static for the (legs, torso) serving pair."""
+    from links_tpu_torch.core.skeleton import split_data_legs_torso
+    from links_tpu_torch.ops.quant import quantize_params_static
+
+    calib = _calib_poses(args)
+    parts = split_data_legs_torso(calib)
+    legs_q, s1, d1 = quantize_params_static(legs, lambda host: host(parts[0]))
+    torso_q, s2, d2 = quantize_params_static(torso, lambda host: host(parts[1]))
+    _report_static(s1 + s2, d1 + d2, calib.shape[0])
+    return legs_q, torso_q
+
+
+def quantize_lr(args, stacked):
+    """The --quant flag on the (left, right) serving pair: calibrated static
+    scales under ``int8-static``, dynamic ones under ``int8``."""
+    if getattr(args, "quant", None) == "int8-static":
+        return static_quant_lr(args, stacked)
+    return maybe_quantize(stacked, args)
+
+
+def quantize_leg_torso(args, legs, torso):
+    """The --quant flag on the (legs, torso) serving pair, as ``quantize_lr``."""
+    if getattr(args, "quant", None) == "int8-static":
+        return static_quant_leg_torso(args, legs, torso)
+    return maybe_quantize(legs, args), maybe_quantize(torso, args)
+
+
 def resolve_device(name: str) -> torch.device:
     """The device the CLI computes on; on a CUDA device f32 matmuls stay f32."""
     device = torch.device(name)

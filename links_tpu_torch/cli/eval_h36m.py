@@ -17,7 +17,11 @@ pair of scenarios whose union does (two completers composed), and the
 The device math runs on ``--device`` (default ``cuda``) under
 ``torch.no_grad()``: the lifts and completers through the residual-block
 kernel there (f32 by default, ``--policy bf16``), each metric group read
-back to the host once. The lifters and completers are read from
+back to the host once. ``--quant int8`` evaluates int8 serving weights
+(dynamic activation scales), ``--quant int8-static`` the lifters with
+scales calibrated on ``--calib-rows`` train poses; the occlusion paths have
+no calibration forward and serve dynamic scales under it, which the results
+record as ``quant_fallback_dynamic``. The lifters and completers are read from
 ``--model-dir`` as the trainers wrote them, their best epoch's by default
 (``--use-final``/``--use-best``), or the pair ``--left-pt/--right-pt``.
 
@@ -229,7 +233,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "poses_2d_pred)")
     parser.add_argument("--json", action="store_true", help="emit one JSON line")
     parser.add_argument("--quant", choices=["int8", "int8-static"], default=None,
-                        help="int8 serving weights (not yet ported)")
+                        help="evaluate with int8-quantized serving weights: the accuracy "
+                             "cost of lift/serve --quant int8 or int8-static (static "
+                             "per-tensor activation scales calibrated on --calib-rows "
+                             "train rows)")
+    parser.add_argument("--calib-rows", type=int, default=1024,
+                        help="train rows for int8-static calibration")
     parser.add_argument("--policy", choices=["f32", "bf16"], default="f32",
                         help="lifting matmul dtype")
     C.add_common_flags(parser)
@@ -241,9 +250,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.quant:
-        raise SystemExit("--quant is not yet ported to links_tpu_torch; evaluate it with "
-                         "links_tpu.cli.eval_h36m")
     if args.from_detections and args.gt_2d:
         raise SystemExit("--from-detections needs --no-gt-2d: it evaluates the detector "
                          "corpus's genuinely missing keypoints")
@@ -254,16 +260,22 @@ def main(argv=None):
     test2d, test3d = test.poses_2d.to(device), test.poses_3d.to(device)
     with torch.no_grad():
         if args.mode == "left_right":
-            pred = lift_left_right_eval(C.load_stacked_lr(args, device), test2d, args.depth,
-                                        args.choice, policy)
+            stacked = C.load_stacked_lr(args, device)
+            stacked = C.quantize_lr(args, stacked)
+            pred = lift_left_right_eval(stacked, test2d, args.depth, args.choice, policy)
         else:
             legs, torso = C.load_leg_torso(args, device)
+            legs, torso = C.quantize_leg_torso(args, legs, torso)
             pred = lift_leg_torso_eval(legs, torso, test2d, args.depth, policy)
         results = base_metrics(test3d, pred)
         results["mpjpe_units"] = MPJPE_UNITS
         if args.occlusion or args.dropout or args.from_detections:
-            lifters = C.load_all_lifters(args, device)
-            completers = C.load_completers(args, device)
+            lifters = C.maybe_quantize(C.load_all_lifters(args, device), args)
+            completers = C.maybe_quantize(C.load_completers(args, device), args)
+            if args.quant == "int8-static":
+                # no calibration forward exists for the occlusion paths: they
+                # served dynamic scales, and the results say so
+                results["quant_fallback_dynamic"] = ["lifters", "completers"]
         if args.from_detections:
             results.update(_eval_from_detections(args, completers, lifters, device, policy))
         if args.dropout:

@@ -7,11 +7,16 @@ Inputs:
 
 ``--fused`` runs both side lifters as one launch of the hand-written CUDA
 kernel (ops/fused_infer.py; bf16 multiplies, chunks of at most 512 poses).
+``--quant int8`` serves int8 weights with dynamic per-row activation scales,
+``--quant int8-static`` with per-tensor scales calibrated on the first
+``--calib-rows`` train poses (ops/quant.py); a quantized forward runs no
+residual-block kernel.
 
 ``--scenario`` serves the occlusion story end to end: the scenario's 2D
 keypoints are zeroed, the pose is lifted by the four lifters (left, right,
 legs, torso) and the missing 3D part is infilled by the scenario's stage-4
-completer (``<model-dir>/occlusion_model_weights/``).
+completer (``<model-dir>/occlusion_model_weights/``). The lifters may be
+attention lifters (3a ``--attention``), except under ``--fused``.
 
 From ``--model-dir`` the trainers' best-epoch weights (``*_best.pt``,
 ``occlusion_model_weights_best/``) are read when they exist, unless
@@ -79,36 +84,49 @@ def add_serving_flags(parser):
                              "launch of the fused CUDA kernel (bf16 multiplies, "
                              "chunked at <=512 poses)")
     parser.add_argument("--quant", choices=["int8", "int8-static"], default=None,
-                        help="int8 serving weights (not yet ported)")
+                        help="post-training int8 quantization of the serving weights "
+                             "(w8a8, int32 accumulation): int8 quantizes activations "
+                             "with dynamic per-row scales; int8-static with per-tensor "
+                             "scales calibrated offline on --calib-rows train poses")
+    parser.add_argument("--calib-rows", type=int, default=1024,
+                        help="train rows used to calibrate int8-static activation scales")
     parser.add_argument("--policy", choices=["f32", "bf16"], default="f32",
                         help="serving matmul dtype: bf16 multiplies with f32 "
                              "accumulation, or the eval-parity f32 default")
 
 
 def build_serving_fn(args, batch: int, device):
-    """The serving forward the flags describe and its per-call batch cap."""
+    """The serving forward the flags describe and its per-call batch cap (lift
+    and serve): the plain lifts, --scenario infill, --quant weights or the
+    fused kernel."""
     from links_tpu_torch.objectives import occlusion as occ
     from links_tpu_torch.objectives.lifter import lift_left_right_eval, lift_leg_torso_eval
 
-    if args.quant:
-        raise SystemExit("--quant is not yet ported to links_tpu_torch; "
-                         "serve it with links_tpu.cli.lift")
     if args.fused and (args.scenario or args.mode != "left_right"):
         raise SystemExit("--fused covers the plain left_right forward only; "
                          "it cannot serve --scenario infill or --mode leg_torso")
+    if args.fused and args.quant:
+        raise SystemExit("--fused and --quant are mutually exclusive "
+                         "(the fused kernel multiplies in bf16)")
+    if args.quant == "int8-static" and args.scenario:
+        raise SystemExit("--quant int8-static calibrates the plain left_right/leg_torso "
+                         "forwards only; the --scenario completer-infill program serves "
+                         "--quant int8 (dynamic scales)")
     policy = BF16 if args.policy == "bf16" else F32
     if args.scenario:
-        lifters = C.load_all_lifters(args, device)
-        completers = C.load_completers(args, device)
+        lifters = C.maybe_quantize(C.load_all_lifters(args, device), args)
+        completers = C.maybe_quantize(C.load_completers(args, device), args)
         joints = DROPOUT_SCENARIO_JOINTS[args.scenario]
         return (lambda p2d: occ.occlusion_validation_poses(
             completers, lifters, occ.drop_keypoints(p2d, joints), args.depth, policy,
             scenarios=(args.scenario,))[args.scenario], batch)
     if args.mode == "leg_torso":
         legs, torso = C.load_leg_torso(args, device)
+        legs, torso = C.quantize_leg_torso(args, legs, torso)
         return (lambda p2d: lift_leg_torso_eval(legs, torso, p2d, args.depth, policy),
                 batch)
     stacked = C.load_stacked_lr(args, device)
+    stacked = C.quantize_lr(args, stacked)
     if args.fused:
         from links_tpu_torch.ops.fused_infer import (
             MAX_BATCH,

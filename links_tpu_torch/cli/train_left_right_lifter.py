@@ -15,7 +15,11 @@ validated epoch's pair ``{left,right}_side_lifter_best.pt`` and its record
 ``left_right_run.pt`` every ``--save-every`` epochs (``--resume`` goes on
 from it), a JSONL log, one line per epoch on stdout and a one-line JSON
 summary. ``--flip-guard K`` stops the run after K depth-flipped validation
-epochs.
+epochs. ``--attention`` trains the 2-head attention lifters
+(models/attention.py) in place of the MLP ones, with the same step, files
+and lifecycle; their ``.pt`` files hold the module's state dict (the
+reference has no such class), which ``lift``, ``eval_h36m``, ``serve`` and
+stage 4 read as they read the MLP pair.
 
 Usage:
     python -m links_tpu_torch.cli.train_left_right_lifter --data data/h36m_data.pkl \\
@@ -31,6 +35,7 @@ from links_tpu_torch import metrics
 from links_tpu_torch.cli import _common as C
 from links_tpu_torch.config import LifterTrainConfig
 from links_tpu_torch.core.nn import F32
+from links_tpu_torch.models.attention import AttentionLifter
 from links_tpu_torch.models.lifters import Lifter, StackedLifter
 from links_tpu_torch.objectives.lifter import (
     LifterFrozen,
@@ -61,13 +66,15 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Stage 3a: train the left/right side lifters (PyTorch port)")
     C.add_lifter_flags(parser)
-    parser.add_argument("--attention", action="store_true", help="(not yet ported)")
+    parser.add_argument("--attention", action="store_true",
+                        help="train the 2-head attention lifter variant "
+                             "(models/attention.py) instead of the MLP")
     C.add_select_by_flag(parser)
     C.add_flip_guard_flag(parser)
     C.add_common_flags(parser)
     C.add_train_flags(parser, bf16_opt_state_default=True, nll_cap_default=500.0)
     args = parser.parse_args(argv)
-    C.refuse_unported(args, C.UNPORTED_TRAIN_FLAGS + ("attention",))
+    C.refuse_unported(args)
     device = C.resolve_device(args.device)
 
     cfg = C.resolve_cfg(args, LifterTrainConfig(
@@ -78,8 +85,9 @@ def main(argv=None):
     frozen = LifterFrozen(*(C.load_flow(args, name, device).requires_grad_(False)
                             for name in (C.FULL_FLOW, C.FLOW_LEFT, C.FLOW_RIGHT)))
     init = torch.Generator().manual_seed(args.seed)
-    stacked = StackedLifter(Lifter(SIDE_JOINTS, generator=init),
-                            Lifter(SIDE_JOINTS, generator=init)).to(device)
+    make = AttentionLifter if args.attention else Lifter
+    stacked = StackedLifter(make(SIDE_JOINTS, generator=init),
+                            make(SIDE_JOINTS, generator=init)).to(device)
     steps_per_epoch = len(train_data) // cfg.batch_size
     state = TrainState(stacked, Adam(stacked.parameters(), cfg.optim, steps_per_epoch))
     step = build_left_right_step(frozen, cfg, bone_means)

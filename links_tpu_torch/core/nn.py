@@ -14,6 +14,7 @@ device. (torch's bf16 ``F.linear`` returns bf16 and is not this policy.)
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -42,6 +43,30 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return torch.matmul(x, weight.mT) + bias
 
 
+# Activation ranges for static int8 calibration (ops/quant.py:
+# quantize_params_static): while a dict is installed here, every ``Linear``
+# records the max |x| it is called with, keyed by id() of the module.
+_CALIB: dict[int, float] | None = None
+
+
+@contextlib.contextmanager
+def record_activation_ranges():
+    """Context manager yielding the {id(linear module): max|x|} record of the
+    calls inside it (the counterpart of links_tpu's, which keys by id() of a
+    linear's param dict)."""
+    global _CALIB
+    prev, _CALIB = _CALIB, {}
+    try:
+        yield _CALIB
+    finally:
+        _CALIB = prev
+
+
+def recording() -> bool:
+    """True inside ``record_activation_ranges``."""
+    return _CALIB is not None
+
+
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     """torch-default LeakyReLU."""
     return torch.where(x >= 0, x, negative_slope * x)
@@ -61,6 +86,8 @@ class Linear(nn.Module):
             torch.empty(fan_out).uniform_(-bound, bound, generator=generator))
 
     def forward(self, x: torch.Tensor, policy: Policy = F32) -> torch.Tensor:
+        if _CALIB is not None:
+            _CALIB[id(self)] = max(_CALIB.get(id(self), 0.0), float(x.abs().max()))
         return dense(x, self.weight, self.bias, policy)
 
 

@@ -7,7 +7,8 @@
 
 Module names are the reference's state-dict keys, so reference ``.pt``
 checkpoints load straight in (ckpt/torch_io.py). LayerNorm and dropout are
-off on every serving path and are not part of this module yet.
+off on every serving path and are not part of this module yet. The
+attention variant of the side lifter is models/attention.py.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from links_tpu_torch.core.nn import F32, Linear, Policy, leaky_relu
+from links_tpu_torch.core.nn import F32, Linear, Policy, leaky_relu, recording
+from links_tpu_torch.ops.quant import QuantLinear
 from links_tpu_torch.ops.resblock import res_block
 
 HIDDEN = 1024
@@ -29,7 +31,10 @@ CHAIN = ("res_common", "res_pose1", "res_pose2", "res_pose3",
 class ResBlock(nn.Module):
     """Two Linear + LeakyReLU with a residual skip (no outer activation): the
     residual-block kernel on the card, its plain version on the CPU
-    (ops/resblock.py)."""
+    (ops/resblock.py). Quantized (ops/quant.py), the block composes its two
+    int8 linears, as the JAX package's ``res_block_apply`` composes
+    ``nn.dense``, and calls no kernel; during static calibration it composes
+    its float linears, so that each records its input."""
 
     def __init__(self, hidden: int, *, generator: torch.Generator | None = None):
         super().__init__()
@@ -37,6 +42,8 @@ class ResBlock(nn.Module):
         self.l2 = Linear(hidden, hidden, generator=generator)
 
     def forward(self, x: torch.Tensor, policy: Policy = F32) -> torch.Tensor:
+        if isinstance(self.l1, QuantLinear) or recording():
+            return leaky_relu(self.l2(leaky_relu(self.l1(x, policy)), policy)) + x
         return res_block(x, self.l1.weight, self.l1.bias, self.l2.weight, self.l2.bias, policy)
 
 

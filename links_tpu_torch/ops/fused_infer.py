@@ -122,8 +122,12 @@ def prepare_fused_weights(stacked) -> FusedWeights:
     upscale weight is (in, out), contiguous along the columns a thread
     computes; the narrow head weights are (out, in) for a warp's dot
     product. Weights are bf16 (the multiply dtype of the policy), biases
-    f32."""
+    f32. Attention lifters are refused."""
     sides = (stacked.left, stacked.right)
+    if any(hasattr(s, "qkv") for s in sides):
+        raise ValueError(
+            "the fused serving kernel covers the MLP lifter layout only; these are "
+            "attention lifters (a qkv weight): serve them without --fused")
 
     def chain(attr):
         return torch.stack([torch.stack([torch.stack([

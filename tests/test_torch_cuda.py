@@ -11,9 +11,11 @@ import torch
 
 from links_tpu_torch.config import OcclusionTrainConfig
 from links_tpu_torch.core.nn import BF16, F32
+from links_tpu_torch.models.attention import AttentionLifter
 from links_tpu_torch.models.completers import Completers
 from links_tpu_torch.models.lifters import Lifter, StackedLifter
 from links_tpu_torch.ops import fused_infer as K2
+from links_tpu_torch.ops import quant as Q
 from links_tpu_torch.ops import resblock as K1
 from links_tpu_torch.train.optim import Adam
 from links_tpu_torch.train.steps import TrainState, build_occlusion_step, draw_occlusion
@@ -285,3 +287,65 @@ def test_occlusion_step_casts_the_frozen_lifters_once(cuda):
         seen.append(tuple(a - b for a, b in zip(counts(), before)))
         assert torch.isfinite(aux["loss"])
     assert seen == [(76, 38, 24), (48, 38, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 22, 1024), (16, 1024, 1024), (37, 1024, 11),
+                                   (512, 1024, 1), (3, 2, 64), (4096, 1024, 1024)])
+def test_int8_product_on_the_card_is_exact(cuda, m, k, n):
+    """torch._int_mm on the card with its operands padded: the exact integer
+    product, as on the CPU."""
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    assert torch.equal(Q.int8_matmul(x.to(cuda), w.to(cuda)).cpu(), x.int() @ w.int().T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", [lambda g: Lifter(11, 1024, generator=g),
+                                  lambda g: AttentionLifter(11, generator=g)],
+                         ids=["mlp", "attention"])
+def test_quantized_lifter_on_the_card_matches_the_cpu(cuda, make):
+    """A quantized lifter on the card against the same on the CPU, with no
+    residual-block kernel launched. The MLP lifter's int8 products are exact
+    and the rest the same f32 elementwise ops: equal within 1e-5 (bitwise on
+    an H100). The attention lifter's float einsums and softmax sum in
+    another order on each device, so a token's activation can land on the
+    other side of an int8 rounding tie and move its row by about one int8
+    step (1.25e-4 in one row of 300 observed on an H100): rows within 1e-5,
+    except at most 5% of them, within 1e-3 (8 such steps)."""
+    g = torch.Generator().manual_seed(11)
+    q = Q.quantize_params(make(g))
+    x = torch.randn(300, 22, generator=g) * 0.1
+    with torch.inference_mode():
+        want = q(x)
+        before = K1.res_block_forward.launches
+        got = q.to(cuda)(x.to(cuda))
+        torch.cuda.synchronize()
+    assert K1.res_block_forward.launches == before
+    for a, b in zip(got, want):
+        a = a.cpu()
+        flipped = ~torch.isclose(a, b, rtol=1e-5, atol=1e-5).all(dim=1)
+        assert flipped.float().mean() <= (0.05 if isinstance(q, AttentionLifter) else 0.0)
+        torch.testing.assert_close(a, b, rtol=0.0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_attention_lifter_runs_its_blocks_on_the_kernel(cuda):
+    """The attention lifter's 5 residual blocks run K1 forward on the card,
+    and backward for the blocks a loss reads; its output agrees with the CPU
+    within K2's bf16 tolerance."""
+    g = torch.Generator().manual_seed(12)
+    lifter = AttentionLifter(11, generator=g)
+    x = torch.randn(64, 22, generator=g) * 0.1
+    want = lifter(x, BF16)
+    card = AttentionLifter(11).to(cuda)
+    card.load_state_dict(lifter.state_dict())
+    before = (K1.res_block_forward.launches, K1.res_block_backward.launches)
+    depth, angle = card(x.to(cuda), BF16)
+    depth.sum().backward()  # reads the pose blocks and the trunk, not the angle blocks
+    torch.cuda.synchronize()
+    assert (K1.res_block_forward.launches - before[0],
+            K1.res_block_backward.launches - before[1]) == (5, 3)
+    torch.testing.assert_close(depth.detach().cpu(), want[0].detach(), **TOL)
+    torch.testing.assert_close(angle.detach().cpu(), want[1].detach(), **TOL)

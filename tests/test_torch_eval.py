@@ -222,14 +222,18 @@ def test_eval_prints_the_jax_text(model_dirs, capsys):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--quant", "int8"], "--quant is not yet ported"),
+    (["--quant", "int4"], "argument --quant: invalid choice: 'int4'"),
     (["--from-detections"], "--from-detections needs --no-gt-2d"),
 ])
-def test_eval_refuses(model_dirs, flags, message):
+def test_eval_refuses(model_dirs, capsys, flags, message):
+    """What eval refuses, as the JAX package's eval does: a --quant scheme
+    other than int8 and int8-static (argparse's message on stderr), and
+    --from-detections without --no-gt-2d."""
     ws, port, _ = model_dirs
-    with pytest.raises(SystemExit, match=message):
+    with pytest.raises(SystemExit) as refused:
         teval.main(["--data", str(ws / "synthetic.pkl"), "--model-dir", str(port), "--device",
                     "cpu", *flags])
+    assert message in f"{refused.value}\n{capsys.readouterr().err}"
 
 
 @pytest.mark.parametrize("flags", [

@@ -80,8 +80,8 @@ def test_raw_2d_and_limit(workspace, jax_outputs, tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--scenario", "ll", "--quant", "int8"], "not yet ported"),
-    (["--quant", "int8"], "not yet ported"),
+    (["--scenario", "ll", "--quant", "int8-static"], "int8-static calibrates the plain"),
+    (["--fused", "--quant", "int8"], "--fused and --quant are mutually exclusive"),
     (["--fused", "--mode", "leg_torso"], "left_right forward only"),
 ])
 def test_refused_flags(workspace, flags, message):

@@ -105,10 +105,10 @@ def test_seed_decides_the_run(run, trained, tmp_path):
 
 @pytest.mark.parametrize("flags,message", [
     # a ported flag beside a refused one: only the refused one is named
-    (["--resume", "--attention"], "^--attention: not yet ported"),
+    (["--resume", "--attention", "--packed-data", "x.lnks"], "^--packed-data: not yet ported"),
     (["--save-every", "2", "--packed-data", "x.lnks"], "^--packed-data: not yet ported"),
     (["--packed-data", "x.lnks"], "--packed-data: not yet ported"),
-    (["--attention"], "--attention: not yet ported"),
+    (["--attention", "--num-devices", "2"], "^--num-devices: not yet ported"),
     (["--select-by", "nll", "--wandb"], "^--wandb: not yet ported"),
     (["--flip-guard", "3", "--distributed"], "^--distributed: not yet ported"),
     (["--wandb"], "--wandb: not yet ported"),
