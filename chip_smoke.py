@@ -3,8 +3,9 @@
     python chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build every CUDA kernel of the port from the sources in the checkout
-     (nvcc, sm_90a, one process per source, all started together);
+  1. build every CUDA kernel of the port and its packed-data loader from
+     the sources in the checkout (nvcc for sm_90a, g++ for the host, one
+     process per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card, at the
      full model width (side lifters at hidden 1024, weights from a seeded
      torch.Generator): the fused serving kernel (K2) at the serving batches
@@ -42,8 +43,16 @@ Phases, each fatal on failure:
      requests against lift, a malformed body answered with 400); stage 3a
      --attention (one step on the card against the CPU with its K1 calls
      counted exactly, one epoch of the trainer, lift and eval of what it
-     wrote, lift --fused refused); and the metrics' batched SVD at 500,000
-     poses, one call against chunks;
+     wrote, lift --fused refused); the serving artifact
+     (``links_tpu_torch.cli.export_model`` of the trained 3a pair in f32,
+     bf16 and at a pinned batch, of the 3b pair, of ``--scenario ll`` and
+     ``--quant int8``, each verified on the card, loaded and lifting the
+     test split against the live lift with its K1 calls per chunk, the bf16
+     artifact's weights cast once; ``serve --artifact`` under concurrent
+     clients); the packed feed (``pack_data``, one 3a epoch with
+     --packed-data creating its pack and one reading it, each with the
+     in-memory epoch's K1 calls, and the gather rate at H36M's train size);
+     and the metrics' batched SVD at 500,000 poses, one call against chunks;
   5. time each stage's training step at batch 256, then K2, then the
      serving daemon's requests/s and lift's poses/s by serving flag, before
      any torch.profiler session (one often leaves the process slower); then the
@@ -82,10 +91,10 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from links_tpu_torch import metrics
+from links_tpu_torch import ckpt, metrics
 from links_tpu_torch.ckpt.torch_io import load_lifter_pt, save_lifter_pt
 from links_tpu_torch.cli import _common as C
-from links_tpu_torch.cli import eval_h36m, lift, run_pipeline, serve
+from links_tpu_torch.cli import eval_h36m, export_model, lift, pack_data, run_pipeline, serve
 from links_tpu_torch.cli._common import LR_LIFTERS
 from links_tpu_torch.cli import train_full_pose_norm_flow as flow1_cli
 from links_tpu_torch.cli import train_left_right_lifter as train_cli
@@ -102,6 +111,7 @@ from links_tpu_torch.config import (
 from links_tpu_torch.core.geometry import normalize_head
 from links_tpu_torch.core.nn import BF16, F32, full_f32_matmuls
 from links_tpu_torch.core.skeleton import split_data_left_right
+from links_tpu_torch.data import native_loader
 from links_tpu_torch.data.synthetic import generate_poses, write_synthetic_pickle
 from links_tpu_torch.flows import Flow
 from links_tpu_torch.models.attention import AttentionLifter
@@ -125,7 +135,7 @@ from links_tpu_torch.objectives.occlusion import (
 from links_tpu_torch.ops import _build
 from links_tpu_torch.ops import fused_infer as K2
 from links_tpu_torch.ops import resblock as K1
-from links_tpu_torch.train import steps
+from links_tpu_torch.train import feed, steps
 from links_tpu_torch.train.optim import Adam
 
 # K2 vs plain version: rtol = atol. Both accumulate bf16 x bf16 products in
@@ -211,6 +221,21 @@ SERVE_TIMED_ROUNDS = 25
 # side)
 EVAL_CHECK_POSES = 512
 EVAL_RTOL = 1e-4
+# the serving artifacts exported from the main path's models (name -> export
+# flags, the live lift's flags, K1 forward calls per chunk: 7 blocks per
+# lifter; a scenario lifts with all four and runs a completer's 3 blocks; a
+# quantized block composes its int8 linears), each loaded on the card and
+# lifting the test split's 4096 poses in chunks of MAIN_BATCH
+EXPORTS = {"3a f32": ([], [], 14), "3a bf16": (["--policy", "bf16"], ["--policy", "bf16"], 14),
+           "3a --batch 256": (["--batch", "256"], [], 14),
+           "--mode leg_torso": (["--mode", "leg_torso"], ["--mode", "leg_torso"], 14),
+           "--scenario ll": (["--scenario", "ll"], ["--scenario", "ll"], 4 * 7 + 3),
+           "--quant int8": (["--quant", "int8"], ["--quant", "int8"], 0)}
+# an artifact's lift against the live lift: the same kernels on the same
+# inputs, so expected bitwise; held within this (rtol = atol)
+EXPORT_TOL = 1e-5
+# the gather rate at H36M's train size: rows of 34 f32 (204 MB), batches of 256
+GATHER_ROWS = 1_500_000
 # pose pairs of the metrics' timing (the order of H36M's test split)
 SCALE_POSES = 500_000
 TIMED_BATCHES = (1, 256, 512)
@@ -347,12 +372,14 @@ def _k2_batches() -> list[int]:
 
 def phase_build():
     t0 = time.perf_counter()
-    _build.build(["fused_infer", "resblock"])
+    _build.build(["fused_infer", "resblock", "dataloader"])
     K2._lib()
     K1._lib()
-    _log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    native_loader._lib()
+    _log(f"[build] kernels and the packed-data loader built and loaded in "
+         f"{time.perf_counter() - t0:.2f} s")
     for name, (secs, out) in _build.BUILD_LOG.items():
-        _log(f"[build] {name}.cu: nvcc {secs:.2f} s\n{out.strip()}")
+        _log(f"[build] {_build.sources(name)[0].name}: {secs:.2f} s\n{out.strip()}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for batch in _k2_batches():
         p = K2.plan(batch, HIDDEN, sms)
@@ -1215,6 +1242,197 @@ def phase_serve(data: Path, models: Path, tmp: Path) -> dict:
     return counts
 
 
+def phase_export(data: Path, models: Path, tmp: Path, smi: str) -> dict:
+    """``links_tpu_torch.cli.export_model`` of the models the main path
+    trained (EXPORTS; each --verify'd on the card), each artifact loaded on
+    the card and lifting the test split in chunks of MAIN_BATCH against the
+    live ``lift`` of the same flags (within EXPORT_TOL, bitwise reported),
+    with the live lift's K1 forward calls per chunk; the bf16 artifact's
+    weights cast once for its lifetime; then ``serve --artifact`` under
+    SERVE_CLIENTS concurrent clients, answering within EXPORT_TOL of ``lift``
+    (its merged chunks need not be bitwise). Times the
+    artifact's poses/s beside the live lift's (each after a warm-up chunk,
+    ending in the copy to the host). -> counts by path."""
+    counts = {}
+    served = ["--data", str(data), "--model-dir", str(models), "--batch-size", str(MAIN_BATCH),
+              "--device", "cuda"]
+    poses = np.load(tmp / "t_fused.npz")["poses_2d"]  # the test split, as lift reads it
+    paths = {}
+    for name, (flags, live_flags, per_chunk) in EXPORTS.items():
+        path = tmp / f"export {name}.pt2".replace(" ", "_")
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = export_model.main(served + flags + ["--out", str(path)])
+        counts[f"export_model {name}"] = _counts()
+        SECONDS[f"export_model {name}"] = time.perf_counter() - t0
+        if summary["verified"] is not True or summary["outputs"] != [
+                f"float32[{summary['batch'] if summary['batch'] != 'symbolic' else 'b'},51]"]:
+            raise AssertionError(f"export_model {name}: {summary}")
+        paths[name] = path
+        want, live_counts = _lift(served, live_flags, tmp / "e.npz", f"export {name} reference")
+        n = want.shape[0]
+        chunks = -(-n // MAIN_BATCH)
+        art = ckpt.deserialize_exported(path, "cuda")
+        fn = art.call
+        with torch.inference_mode():
+            lift._chunked(fn, poses[:MAIN_BATCH], MAIN_BATCH, "cuda")  # warm-up chunk
+            casts = K1.weight_plane.casts
+            seconds = []
+            for rep in range(3):  # the first pass counted; no cast after the warm-up
+                _reset_counts()
+                t0 = time.perf_counter()
+                out = lift._chunked(fn, poses, MAIN_BATCH, "cuda")
+                seconds.append(time.perf_counter() - t0)
+                if rep == 0:
+                    got, counts[f"artifact {name}"] = out, _counts()
+            casts = K1.weight_plane.casts - casts
+        live_rate = max(_lift_rate(served, live_flags, tmp / "e.npz") for _ in range(3))
+        got = got.reshape(n, 3, 17)
+        err = np.abs(got - want)
+        if (err > EXPORT_TOL + EXPORT_TOL * np.abs(want)).any():
+            raise AssertionError(f"the {name} artifact differs from lift by {err.max():.3e}")
+        k1 = counts[f"artifact {name}"]["res_block_forward"]
+        live_k1 = live_counts["res_block_forward"]
+        if (k1 != chunks * per_chunk or live_k1 != (chunks + 1) * per_chunk
+                or counts[f"artifact {name}"]["fused_sides_forward"] or casts):
+            raise AssertionError(f"the {name} artifact made {k1} K1 forward calls for {chunks} "
+                                 f"chunks (live lift {live_k1} with its warm-up chunk, expected "
+                                 f"{per_chunk} per chunk), {casts} weight casts after its "
+                                 f"warm-up: {counts[f'artifact {name}']}")
+        _log(f"[export] {name}: {summary['bytes']} bytes, batch {summary['batch']}, verified on "
+             f"the card; lifts {n} poses in {chunks} chunks of {MAIN_BATCH} with {k1} K1 forward "
+             f"calls ({per_chunk} per chunk, as the live lift), max abs err vs lift {err.max():.3e}"
+             f" ({'bitwise equal' if np.array_equal(got, want) else 'not bitwise equal'}); "
+             f"poses/s (best of 3 passes): artifact {n / min(seconds):.1f}, live lift "
+             f"{live_rate} on {smi}")
+    # the bf16 artifact: each of its 28 weights cast to its bf16 plane once, at
+    # the warm-up (the loop above found none cast after it)
+    art = ckpt.deserialize_exported(paths["3a bf16"], "cuda")
+    casts = K1.weight_plane.casts
+    with torch.inference_mode():
+        for _ in range(3):
+            lift._chunked(art.call, poses[:MAIN_BATCH], MAIN_BATCH, "cuda")
+    casts = K1.weight_plane.casts - casts
+    if casts != 2 * 2 * 7:
+        raise AssertionError(f"a fresh bf16 artifact cast {casts} weights in 3 calls, not 28 once")
+    _log(f"[export] 3a bf16 artifact freshly loaded: {casts} weight casts in 3 calls (28 "
+         f"weights, each once)")
+
+    # serve --artifact under concurrent clients, against lift
+    n = SERVE_CLIENTS * SERVE_POSES
+    raw = ["--raw-2d", str(tmp / "serve_poses.npy")]
+    want, _ = _lift(served + raw, [], tmp / "sa.npz", "serve --artifact reference", n=n)
+    serve_poses = np.load(tmp / "serve_poses.npy")
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _serving(["--artifact", str(paths["3a f32"]), "--device", "cuda", "--batch-size",
+                   str(MAIN_BATCH)]) as base:
+        _, got = _clients(base, serve_poses, SERVE_CHECK_ROUNDS)
+        health = _health(base)
+    counts["serve --artifact"] = _counts()
+    SECONDS["serve --artifact"] = time.perf_counter() - t0
+    # the daemon merges requests into other chunks than lift's: the linears'
+    # library products may then sum in another order (1.9e-6 seen on an H100)
+    err = np.abs(got - want)
+    if (err > EXPORT_TOL + EXPORT_TOL * np.abs(want)).any() \
+            or health["model"].get("artifact") != str(paths["3a f32"]) \
+            or health["requests"] != SERVE_CLIENTS * SERVE_CHECK_ROUNDS \
+            or counts["serve --artifact"]["res_block_forward"] < 1:
+        raise AssertionError(f"serve --artifact: answers vs lift max abs err {err.max():.3e}; "
+                             f"/healthz {health}; {counts['serve --artifact']}")
+    _log(f"[export] serve --artifact (3a f32): {SERVE_CLIENTS} concurrent clients x "
+         f"{SERVE_CHECK_ROUNDS} requests of {SERVE_POSES} poses, max abs err vs lift "
+         f"{err.max():.3e} ({'bitwise equal' if np.array_equal(got, want) else 'not bitwise'}); "
+         f"/healthz platforms {health['model']['platforms']}, inputs "
+         f"{health['model']['inputs']}, {health['device_batches']} device runs for "
+         f"{health['merged_requests']} requests; launches {counts['serve --artifact']}")
+    return counts
+
+
+def _gather_rate(tmp: Path) -> dict:
+    """One shuffled pass over a GATHER_ROWS x 34 f32 pack, rows/s: gathered
+    into host memory in batches of MAIN_BATCH (one thread), in the feed's
+    chunks of CHUNK_STEPS batches with one thread (the loader's default)
+    and with eight, and through the packed feed onto the card (its
+    worker, pinned buffers and copies included)."""
+    rows = np.random.default_rng(3).standard_normal((GATHER_ROWS, 34), dtype=np.float32)
+    native_loader.pack_dataset(tmp / "gather.lnks", rows)
+    del rows
+    rates = {}
+    chunk = feed.CHUNK_STEPS * MAIN_BATCH
+    for name, threads, count in ((f"batches of {MAIN_BATCH}", 1, MAIN_BATCH),
+                                 (f"chunks of {chunk}, 1 thread", 1, chunk),
+                                 (f"chunks of {chunk}, 8 threads", 8, chunk)):
+        with native_loader.PackedDataset(tmp / "gather.lnks", n_threads=threads) as ds:
+            buf = np.empty((count, 34), np.float32)
+            ds.shuffle(1)
+            ds.gather(0, count, buf)
+            t0 = time.perf_counter()
+            for start in range(0, ds.n_rows - count + 1, count):
+                ds.gather(start, count, buf)
+            rates[name] = (ds.n_rows // count * count) / (time.perf_counter() - t0)
+    with native_loader.PackedDataset(tmp / "gather.lnks") as ds:
+        g = torch.Generator(device="cuda").manual_seed(2)
+        t0 = time.perf_counter()
+        n = 0
+        for batch in feed.PackedFeed(ds, "cuda").batches(MAIN_BATCH, g):
+            n += batch.shape[0]
+        torch.cuda.synchronize()
+        rates["the packed feed onto the card"] = n / (time.perf_counter() - t0)
+    (tmp / "gather.lnks").unlink()
+    return rates
+
+
+def phase_feed(data: Path, models: Path, tmp: Path, in_memory: dict, in_memory_rate: float,
+               smi: str) -> dict:
+    """The packed feed: ``pack_data`` packs the synthetic train split; stage
+    3a runs one epoch with --packed-data that creates its pack and one that
+    reads it (the main path's flows, fresh directories), each 40 steps with
+    the in-memory epoch's K1 counts (``in_memory``: the main path's 3a
+    counts); their poses/s beside the main path's in-memory epoch
+    (``in_memory_rate``) and beside an in-memory epoch run just before and
+    one just after them; then the gather rate at H36M's train size. ->
+    counts by path."""
+    counts = {}
+    packed = tmp / "train_pack.lnks"
+    with contextlib.redirect_stdout(io.StringIO()):
+        info = pack_data.main(["--data", str(data), "--out", str(packed)])
+    if info["n_rows"] != 5 * TRAIN_POSES or info["n_cols"] != 34:
+        raise AssertionError(f"pack_data: {info}")
+    rates = {}
+    pack = tmp / "feed_pack.lnks"
+    for path, folder, packed_flags in (
+            ("3a in memory (before)", "feed_before", []),
+            ("3a --packed-data (creates the pack)", "feed_creates", ["--packed-data", str(pack)]),
+            ("3a --packed-data (reads the pack)", "feed_reads", ["--packed-data", str(pack)]),
+            ("3a in memory (after)", "feed_after", [])):
+        ws = tmp / folder
+        ws.mkdir()
+        for f in ("full_flow.pt", "flow_left.pt", "flow_right.pt"):
+            shutil.copy2(models / f, ws / f)
+        common = ["--data", str(data), "--batch-size", str(MAIN_BATCH), "--device", "cuda",
+                  "--model-dir", str(ws), *packed_flags]
+        existed = pack.exists()
+        _, summary, counts[path] = _train(train_cli, common, path)
+        if packed_flags and (existed != path.endswith("reads the pack)") or not pack.exists()):
+            raise AssertionError(f"{path}: the pack existed before: {existed}")
+        k1 = {k: counts[path][k] for k in ("res_block_forward", "res_block_backward")}
+        if k1 != {k: in_memory[k] for k in k1}:
+            raise AssertionError(f"{path}: K1 calls {k1}, the in-memory epoch made {in_memory}")
+        rates[path] = summary["poses_per_sec"]
+        _log(f"[feed] {path}: {summary['steps']} steps, loss {summary['last']['loss']:.4f}; K1 "
+             f"calls {k1['res_block_forward']} forward + {k1['res_block_backward']} backward, "
+             f"as the in-memory epoch")
+    gather = _gather_rate(tmp)
+    _log(f"[feed] pack_data: {info['n_rows']} rows x {info['n_cols']}; 3a epoch poses/s: "
+         + ", ".join(f"{k} {v}" for k, v in rates.items())
+         + f", in memory (the main path) {in_memory_rate}; one shuffled pass over "
+         f"{GATHER_ROWS} x 34 f32 ({GATHER_ROWS * 34 * 4 / 1e6:.0f} MB), rows/s: "
+         + ", ".join(f"{k} {v:.0f}" for k, v in gather.items()) + f" on {smi}")
+    return counts
+
+
 def phase_attention(data: Path, models: Path, tmp: Path) -> dict:
     """3a --attention: one training step on the card against the CPU (its K1
     calls counted exactly); then one epoch of the trainer into a fresh
@@ -1489,7 +1707,8 @@ def phase_k1_times(smi):
     """K1 forward and backward per call under the bf16 policy at the batches
     of the training steps (stage 4's frozen lifters 256, the lifter steps 2 x
     256, stage 4's completers 3 x 256) and the validation batch; the f32
-    policy at the validation batch (the validation lifts run f32). The
+    policy at the serving batch (lift, serve and the artifact run chunks of
+    256) and the validation batch (the validation lifts run f32). The
     kernels run with a warm weight-plane cache; the cast of one weight is
     timed beside them. The kernel's graph and eager times and the library's
     are the least of three runs each, taken in turns. -> rows by (batch,
@@ -1500,7 +1719,7 @@ def phase_k1_times(smi):
          f"{K1_CASTS_PER_STEP} per training step: {K1_CASTS_PER_STEP * cast_ms:.4f} ms on {smi}")
     rows = {}
     for batch, policy, pname in ((256, BF16, "bf16"), (512, BF16, "bf16"), (768, BF16, "bf16"),
-                                 (4096, BF16, "bf16"), (4096, F32, "f32")):
+                                 (4096, BF16, "bf16"), (256, F32, "f32"), (4096, F32, "f32")):
         x, w1, b1, w2, b2, dy = _k1_inputs(batch, seed=2000 + batch)
         plain_saved = K1.res_block_forward_reference(x, w1, b1, w2, b2, policy)[1:]
         xs, a1, hs, a2 = K1.kernel_saved(x, *plain_saved, policy)
@@ -1663,7 +1882,7 @@ def main() -> int:
         _timed(f"step card vs CPU {name}", phase_step_card_vs_cpu, name)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        counts, _ = _timed("main path", phase_main_path, stacked, tmp)
+        counts, summaries = _timed("main path", phase_main_path, stacked, tmp)
         data, models = tmp / "synthetic.pkl", tmp / "models"
         _, _, composed = _timed("K1 at the eval batches", phase_k1_eval_batches, data, models)
         counts.update(_timed("eval", phase_eval, data, models, composed))
@@ -1675,6 +1894,9 @@ def main() -> int:
         counts.update(_timed("attention checks", phase_attention, data, models, tmp))
         smi = _smi()
         _log(smi)
+        counts.update(_timed("export", phase_export, data, models, tmp, smi))
+        counts.update(_timed("feed", phase_feed, data, models, tmp, counts["3a"],
+                             summaries["3a"]["poses_per_sec"], smi))
         _timed("metrics at scale", phase_metrics_scale, smi)
         _, profiles = _timed("step times", phase_step_times, smi)
         k2_rows = _timed("K2 times", phase_times, prep, smi)

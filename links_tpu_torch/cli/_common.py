@@ -173,7 +173,7 @@ def add_lifter_flags(parser: argparse.ArgumentParser):
 
 
 # Flags of the JAX trainers that a later slice ports: accepted, then refused
-UNPORTED_TRAIN_FLAGS = ("packed_data", "distributed", "num_devices", "wandb")
+UNPORTED_TRAIN_FLAGS = ("distributed", "num_devices", "wandb")
 
 
 def add_train_flags(parser: argparse.ArgumentParser, bf16_opt_state_default: bool = False,
@@ -207,7 +207,11 @@ def add_train_flags(parser: argparse.ArgumentParser, bf16_opt_state_default: boo
     parser.add_argument("--log", default=None,
                         help="JSONL metrics path (default <model-dir>/<stage>.jsonl)")
     add_device_flag(parser)
-    parser.add_argument("--packed-data", default=None, help="(not yet ported)")
+    parser.add_argument("--packed-data", default=None,
+                        help="stream the train batches from an LNKS pack through the native "
+                             "loader (data/native_loader.py, train/feed.py). When the file "
+                             "exists the train split is not loaded; otherwise it is packed "
+                             "from --data first (or with links_tpu_torch.cli.pack_data)")
     parser.add_argument("--distributed", action="store_true", help="(not yet ported)")
     parser.add_argument("--num-devices", type=int, default=None, help="(not yet ported)")
     parser.add_argument("--wandb", action="store_true", help="(not yet ported)")
@@ -324,6 +328,35 @@ def load_train_test(args):
     return (loader(path, train_s, normalize_func=geometry.normalize_head, use_gt=use_gt,
                    complete_only=co),
             loader(path, test_s, normalize_func=norm, use_gt=use_gt, complete_only=co))
+
+
+def load_train_test_or_packed(args, test: bool = True):
+    """(train split, test split, train rows, pack): ``load_train_test``, or
+    ``load_train`` without ``test`` (the test split then None), except when
+    --packed-data names an existing LNKS pack: the train split is then not
+    loaded (None), its row count comes from the pack's header, and only the
+    test split is. A --packed-data file that does not exist yet is packed
+    from the train split first. The pack is None without --packed-data."""
+    from links_tpu_torch.data.native_loader import PackedDataset
+    from links_tpu_torch.train.feed import open_or_pack
+
+    path = Path(args.packed_data) if getattr(args, "packed_data", None) else None
+    if path is not None and path.exists():
+        packed = PackedDataset(path)
+        return None, load_test(args) if test else None, packed.n_rows, packed
+    train_data, test_data = load_train_test(args) if test else (load_train(args), None)
+    packed = open_or_pack(path, train_data.poses_2d.numpy()) if path is not None else None
+    return train_data, test_data, len(train_data), packed
+
+
+def train_batches(train_data, packed, device):
+    """What the epochs read: the train split's 2D poses on ``device``, or
+    the packed feed of ``packed`` onto it."""
+    if packed is not None:
+        from links_tpu_torch.train.feed import PackedFeed
+
+        return PackedFeed(packed, device)
+    return train_data.poses_2d.to(device)
 
 
 def artifact(args, name: str) -> Path:
@@ -551,8 +584,14 @@ def bone_means_from_data(train_data) -> torch.Tensor:
 
 
 def resolve_bone_means(args, train_data) -> torch.Tensor:
-    """The bone-relation prior means that ``--bone-means`` names (16,)."""
+    """The bone-relation prior means that ``--bone-means`` names (16,);
+    ``train_data`` is None when an existing --packed-data pack stands in
+    for the train split."""
     if args.bone_means == "data":
+        if train_data is None:
+            raise SystemExit("--bone-means data needs the train split's 3D GT, which an "
+                             "existing --packed-data pack does not carry (it holds only 2D "
+                             "poses); pass explicit means or drop --packed-data")
         return bone_means_from_data(train_data)
     means = {"h36m": BONE_RELATIONS_MEAN_H36M,
              "mpi_vnect_interesting": BONE_RELATIONS_MEAN_MPI_VNECT_INTERESTING}
@@ -832,15 +871,16 @@ class TrainResult(NamedTuple):
     report: dict    # EpochTimer.report
 
 
-def run_training(args, cfg, step, state, data: torch.Tensor, generator: torch.Generator,
+def run_training(args, cfg, step, state, data, generator: torch.Generator,
                  log_name: str, config: dict, on_epoch, draw=None, *, stage: str,
                  save: Callable[[bool], None], tracker: BestTracker | None = None,
                  best: dict | None = None, guard: FlipGuard | None = None) -> TrainResult:
     """The trainers' epoch loop (the JAX trainers' loop, one copy for all):
     with --resume, the run checkpoint ``<model-dir>/<stage>_run.pt`` first
     restores ``state`` and ``generator`` and the epoch to start from. Then
-    epochs to ``cfg.n_epochs`` of ``step`` over ``data``
-    (``train.loop.run_epoch``, with ``draw`` as there). After each epoch
+    epochs to ``cfg.n_epochs`` of ``step`` over ``data``, a tensor on the
+    device or the packed feed (``train_batches``; ``train.loop.run_epoch``,
+    with ``draw`` as there). After each epoch
     ``on_epoch(epoch, rec)`` may validate into the record and returns the
     text of the epoch's line after ``epoch N: ``; ``tracker`` keeps the
     ``best`` artifacts (name -> live module) of the best validated epoch;

@@ -96,8 +96,9 @@ def add_serving_flags(parser):
 
 
 def build_serving_fn(args, batch: int, device):
-    """The serving forward the flags describe and its per-call batch cap (lift
-    and serve): the plain lifts, --scenario infill, --quant weights or the
+    """The serving forward the flags describe, its per-call batch cap and the
+    modules it reads its weights from, by name (lift, serve and
+    export_model): the plain lifts, --scenario infill, --quant weights or the
     fused kernel."""
     from links_tpu_torch.objectives import occlusion as occ
     from links_tpu_torch.objectives.lifter import lift_left_right_eval, lift_leg_torso_eval
@@ -119,12 +120,15 @@ def build_serving_fn(args, batch: int, device):
         joints = DROPOUT_SCENARIO_JOINTS[args.scenario]
         return (lambda p2d: occ.occlusion_validation_poses(
             completers, lifters, occ.drop_keypoints(p2d, joints), args.depth, policy,
-            scenarios=(args.scenario,))[args.scenario], batch)
+            scenarios=(args.scenario,))[args.scenario], batch,
+            # the one completer the scenario runs
+            {"lifters": torch.nn.ModuleDict(lifters),
+             "completer": completers[occ.SCENARIO_COMPLETER[args.scenario]]})
     if args.mode == "leg_torso":
         legs, torso = C.load_leg_torso(args, device)
         legs, torso = C.quantize_leg_torso(args, legs, torso)
         return (lambda p2d: lift_leg_torso_eval(legs, torso, p2d, args.depth, policy),
-                batch)
+                batch, {"legs": legs, "torso": torso})
     stacked = C.load_stacked_lr(args, device)
     stacked = C.quantize_lr(args, stacked)
     if args.fused:
@@ -136,9 +140,9 @@ def build_serving_fn(args, batch: int, device):
 
         prep = prepare_fused_weights(stacked)
         return (lambda p2d: lift_left_right_eval_fused(prep, p2d, args.depth, args.choice),
-                min(batch, MAX_BATCH))
+                min(batch, MAX_BATCH), {"stacked": stacked})
     return (lambda p2d: lift_left_right_eval(stacked, p2d, args.depth, args.choice, policy),
-            batch)
+            batch, {"stacked": stacked})
 
 
 def main(argv=None):
@@ -170,7 +174,7 @@ def main(argv=None):
     batch = min(args.batch_size or 256, n)
 
     with torch.inference_mode():
-        fn, batch = build_serving_fn(args, batch, device)
+        fn, batch, _ = build_serving_fn(args, batch, device)
         _chunked(fn, poses_2d[:batch], batch, device)  # warm up (kernel build, allocator)
         t0 = time.perf_counter()
         pred = _chunked(fn, poses_2d, batch, device)

@@ -21,12 +21,18 @@ cost fewer than N device runs. A merged run that fails is retried request
 by request, so that one poisoned request fails alone. ``--no-coalesce``
 serializes each request's device work behind a lock instead. Autograd's
 inference mode is a per-thread setting, so the dispatcher (or the lock
-holder) enters it itself. ``--artifact`` (an exported model) is not yet
-ported.
+holder) enters it itself.
+
+``--artifact`` serves an exported model (``links_tpu_torch.cli.export_model``)
+in place of the checkpoints: the model flags are then ignored, with a warning,
+and an artifact of pinned batch is called at that batch, its last chunk
+padded. The process registers the artifact's residual-block op by importing
+``links_tpu_torch.ops`` (ckpt/export_io.py).
 
 Usage:
     python -m links_tpu_torch.cli.serve --data data/h36m_data.pkl --model-dir models \\
         [--fused | --quant int8] [--port 8321] [--device cuda]
+    python -m links_tpu_torch.cli.serve --artifact lr.pt2 [--port 8321]
 """
 
 from __future__ import annotations
@@ -170,23 +176,53 @@ def _parse_poses(body: bytes, content_type: str) -> np.ndarray:
     return arr
 
 
+def _padded(fn, batch: int):
+    """``fn`` of a pinned batch, called on chunks of at most ``batch`` rows:
+    a shorter chunk is padded with copies of its last row, and its rows of
+    the output kept."""
+    def call(p2d: torch.Tensor) -> torch.Tensor:
+        n = p2d.shape[0]
+        if n == batch:
+            return fn(p2d)
+        return fn(torch.cat([p2d, p2d[-1:].expand(batch - n, -1)]))[:n]
+
+    return call
+
+
+def _load_artifact(args, device):
+    """--artifact: (its callable, the chunk batch, the model's description)."""
+    from links_tpu_torch import ckpt
+
+    ignored = [f for f, on in (("--scenario", args.scenario), ("--quant", args.quant),
+                               ("--fused", args.fused), ("--mode", args.mode != "left_right"),
+                               ("--policy", args.policy != "f32")) if on]
+    if ignored:
+        print(f"[links_tpu_torch] serve: {' '.join(ignored)} ignored: the model is baked into "
+              f"the artifact at export time", file=sys.stderr)
+    art = ckpt.deserialize_exported(args.artifact, device)
+    fn, batch = art.call, args.batch_size or 256
+    if art.batch:  # a pinned batch: chunk at it
+        fn, batch = _padded(fn, art.batch), art.batch
+    return fn, batch, {"artifact": args.artifact, "platforms": art.platforms,
+                       "inputs": art.inputs, "device": str(device)}
+
+
 def make_server(args) -> ThreadingHTTPServer:
-    """The HTTP server with the model loaded (and warmed, unless
-    --no-warmup), bound to --host/--port (port 0: any free one); its
+    """The HTTP server with the model (or --artifact) loaded and warmed,
+    unless --no-warmup, bound to --host/--port (port 0: any free one); its
     ``server_close`` also stops the dispatcher."""
-    if getattr(args, "artifact", None):
-        raise SystemExit("--artifact (an exported model) is not yet ported to "
-                         "links_tpu_torch; serve checkpoints with --model-dir or "
-                         "--left-pt/--right-pt, or the artifact with links_tpu.cli.serve")
     device = C.resolve_device(args.device)
-    batch = args.batch_size or 256
-    with torch.inference_mode():  # the weights load as inference tensors, as in lift
-        fn, batch = build_serving_fn(args, batch, device)
-        if args.warmup:
+    if getattr(args, "artifact", None):
+        fn, batch, model_desc = _load_artifact(args, device)
+    else:
+        with torch.inference_mode():  # the weights load as inference tensors, as in lift
+            fn, batch, _ = build_serving_fn(args, args.batch_size or 256, device)
+        model_desc = {"mode": args.mode, "scenario": args.scenario, "quant": args.quant,
+                      "fused": args.fused, "policy": args.policy, "model_dir": args.model_dir,
+                      "device": str(device)}
+    if args.warmup:
+        with torch.inference_mode():
             _chunked(fn, np.zeros((batch, 34), np.float32), batch, device)
-    model_desc = {"mode": args.mode, "scenario": args.scenario, "quant": args.quant,
-                  "fused": args.fused, "policy": args.policy, "model_dir": args.model_dir,
-                  "device": str(device)}
     lock = threading.Lock()
     stats = {"requests": 0, "poses": 0, "errors": 0, "started": time.time()}
     coalescer = None
@@ -268,7 +304,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="HTTP serving daemon for 2D->3D pose lifting (PyTorch port)")
     parser.add_argument("--artifact", default=None,
-                        help="an exported model (not yet ported: serve checkpoints)")
+                        help="serve an exported model (links_tpu_torch.cli.export_model) "
+                             "instead of checkpoints; the model flags are ignored")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8321)
     parser.add_argument("--no-warmup", dest="warmup", action="store_false",

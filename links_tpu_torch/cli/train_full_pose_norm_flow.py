@@ -3,7 +3,8 @@ sample from (counterpart of links_tpu/cli/train_full_pose_norm_flow.py):
 its NLL on the train split's poses plus its NLL on its own samples around
 them.
 
-Inputs: the dataset pickle (``--data``; the train split only). Outputs:
+Inputs: the dataset pickle (``--data``; the train split only), or an LNKS
+pack of the train split (``--packed-data``, train/feed.py). Outputs:
 ``<model-dir>/full_flow.pt`` in FrEIA's layout (its fixed mixing matrices
 included) and the run checkpoint ``<model-dir>/full_flow_run.pt``, written
 every due epoch (``--save-every``, default 1; always the final one), a JSONL
@@ -44,15 +45,15 @@ def main(argv=None):
     device = C.resolve_device(args.device)
 
     cfg = C.resolve_cfg(args, FlowTrainConfig(num_keypoints=args.num_keypoints))
-    train_data = C.load_train(args)
+    train_data, _, n_train, packed = C.load_train_test_or_packed(args, test=False)
     # 8 blocks at hidden 1024, as the JAX package's init_flow
     flow = Flow(cfg.num_keypoints, generator=torch.Generator().manual_seed(args.seed))
     flow = flow.to(device)
-    steps_per_epoch = len(train_data) // cfg.batch_size
+    steps_per_epoch = n_train // cfg.batch_size
     state = TrainState(flow, Adam(flow.parameters(), cfg.optim, steps_per_epoch))
     step = build_full_flow_step(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    data = train_data.poses_2d.to(device)
+    data = C.train_batches(train_data, packed, device)
     model_dir = Path(args.model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
     C.clear_stage_artifacts(args, "full_flow", [C.FULL_FLOW])

@@ -5,7 +5,8 @@ validates PA-MPJPE (reflection='best'), N-MPJPE, AUC, PCK and the depth-tilt
 alarm on the test split, and the unsupervised criteria (val_nll,
 val_unsup_loss) on a fixed, seed-independent rotation draw.
 
-Inputs: the dataset pickle (``--data``) and the frozen flows
+Inputs: the dataset pickle (``--data``; with ``--packed-data`` the train
+batches stream from an LNKS pack) and the frozen flows
 ``<model-dir>/{full_flow,flow_legs,flow_torso}.pt`` in FrEIA's layout (the
 port's flow trainers write them). Outputs: ``<model-dir>/{leg,torso}_lifter.pt``
 in the reference layout (``links_tpu_torch.cli.lift --mode leg_torso``
@@ -65,18 +66,18 @@ def main(argv=None):
     cfg = C.resolve_cfg(args, LifterTrainConfig(
         weight_bl=args.bl, depth=args.translation, weight_2d=args.rep2d,
         weight_3d=args.rot3d, weight_velocity=args.velocity, weight_likeli=args.likelihood))
-    train_data, test_data = C.load_train_test(args)
+    train_data, test_data, n_train, packed = C.load_train_test_or_packed(args)
     bone_means = C.resolve_bone_means(args, train_data).to(device)
     frozen = LifterFrozen(*(C.load_flow(args, name, device).requires_grad_(False)
                             for name in (C.FULL_FLOW, C.FLOW_LEGS, C.FLOW_TORSO)))
     init = torch.Generator().manual_seed(args.seed)
     model = LegTorsoLifter(Lifter(LEG_JOINTS, generator=init),
                            Lifter(TORSO_JOINTS, generator=init)).to(device)
-    steps_per_epoch = len(train_data) // cfg.batch_size
+    steps_per_epoch = n_train // cfg.batch_size
     state = TrainState(model, Adam(model.parameters(), cfg.optim, steps_per_epoch))
     step = build_leg_torso_step(frozen, cfg, bone_means)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    data = train_data.poses_2d.to(device)
+    data = C.train_batches(train_data, packed, device)
     test_2d, test_3d = test_data.poses_2d.to(device), test_data.poses_3d.to(device)
 
     def on_epoch(epoch, rec):

@@ -6,7 +6,8 @@ N-MPJPE per scenario, and their mean PA), and the training signal itself on
 the test split's 2D (``val_mse``, no 3D ground truth) on a fixed,
 seed-independent rotation draw.
 
-Inputs: the dataset pickle (``--data``) and the four frozen lifters in the
+Inputs: the dataset pickle (``--data``; with ``--packed-data`` the train
+batches stream from an LNKS pack) and the four frozen lifters in the
 reference layout: ``<model-dir>/{left,right}_side_lifter_final.pt`` (or the
 ``{left,right}_lifter.pt`` pair, or ``--left-pt/--right-pt``) and
 ``<model-dir>/{leg,torso}_lifter.pt`` (the port's stage-3 trainers write
@@ -103,15 +104,15 @@ def main(argv=None):
     if args.weight_decay is not None:
         cfg = dataclasses.replace(
             cfg, optim=dataclasses.replace(cfg.optim, weight_decay=args.weight_decay))
-    train_data, test_data = C.load_train_test(args)
+    train_data, test_data, n_train, packed = C.load_train_test_or_packed(args)
     lifters = {k: v.requires_grad_(False) for k, v in C.load_all_lifters(args, device).items()}
     completers = Completers(generator=torch.Generator().manual_seed(args.seed)).to(device)
-    steps_per_epoch = len(train_data) // cfg.batch_size
+    steps_per_epoch = n_train // cfg.batch_size
     state = TrainState(completers, Adam(completers.parameters(), cfg.optim, steps_per_epoch))
     step = build_occlusion_step(lifters["legs"], lifters["torso"], cfg)
     draw = functools.partial(draw_occlusion, n_rot=cfg.n_rot, input_noise=cfg.input_noise)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    data = train_data.poses_2d.to(device)
+    data = C.train_batches(train_data, packed, device)
     test_2d, test_3d = test_data.poses_2d.to(device), test_data.poses_3d.to(device)
 
     def on_epoch(epoch, rec):

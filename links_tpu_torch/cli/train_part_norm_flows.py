@@ -3,7 +3,8 @@
 samples from the frozen full-pose flow (counterpart of
 links_tpu/cli/train_part_norm_flows.py).
 
-Inputs: the dataset pickle (``--data``; the train split only) and
+Inputs: the dataset pickle (``--data``; the train split only, or an LNKS
+pack of it with ``--packed-data``) and
 ``<model-dir>/full_flow.pt`` (stage 1). Outputs:
 ``<model-dir>/flow_{left,right,legs,torso}.pt`` in FrEIA's layout and the
 run checkpoint ``<model-dir>/part_flows_run.pt``, written every due epoch
@@ -47,17 +48,17 @@ def main(argv=None):
     device = C.resolve_device(args.device)
 
     cfg = C.resolve_cfg(args, PartFlowTrainConfig(side_keypoints=args.left_right_side_keypoints))
-    train_data = C.load_train(args)
+    train_data, _, n_train, packed = C.load_train_test_or_packed(args, test=False)
     full_flow = C.load_flow(args, C.FULL_FLOW, device).requires_grad_(False)
     # 8 blocks at hidden 1024 each, in PARTS order from one generator
     init = torch.Generator().manual_seed(args.seed)
     dims = (cfg.side_keypoints, cfg.side_keypoints, cfg.leg_keypoints, cfg.torso_keypoints)
     parts = PartFlows(*(Flow(d, generator=init) for d in dims)).to(device)
-    steps_per_epoch = len(train_data) // cfg.batch_size
+    steps_per_epoch = n_train // cfg.batch_size
     state = TrainState(parts, Adam(parts.parameters(), cfg.optim, steps_per_epoch))
     step = build_part_flows_step(full_flow, cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    data = train_data.poses_2d.to(device)
+    data = C.train_batches(train_data, packed, device)
     model_dir = Path(args.model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
     C.clear_stage_artifacts(args, "part_flows", list(ARTIFACTS.values()))

@@ -39,7 +39,10 @@ from links_tpu_torch.core.nn import F32, Linear, Policy, record_activation_range
 __all__ = ["QuantLinear", "dense_int8", "int8_matmul", "is_quantized", "quantize_params",
            "quantize_params_static", "quantize_stacked_static", "quantize_weight"]
 
-_MIN_ROWS = 17  # torch._int_mm on CUDA: more than 16 rows, K and N multiples of 8
+# torch._int_mm on CUDA: more than 16 rows, K and N multiples of 8. The rows
+# always get _PAD_ROWS zero rows, whatever the batch, so that no test of the
+# batch size enters a traced program (torch.export would pin the batch on it).
+_PAD_ROWS = 16
 _MULTIPLE = 8
 
 
@@ -63,12 +66,13 @@ def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
 
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 @ (N, K)^T int8 -> (M, N) int32, exact: the operands
-    padded with zeros to what ``torch._int_mm`` takes on the card."""
+    padded with zeros to what ``torch._int_mm`` takes on the card (the rows
+    by a fixed _PAD_ROWS, which adds rows no output reads)."""
     m, k = x_q.shape
     n = w_q.shape[0]
     up = -(-k // _MULTIPLE) * _MULTIPLE
     un = -(-n // _MULTIPLE) * _MULTIPLE
-    xp = _pad_to(_pad_to(x_q, 1, up), 0, _MIN_ROWS)
+    xp = F.pad(x_q, (0, up - k, 0, _PAD_ROWS))
     wp = _pad_to(_pad_to(w_q, 1, up), 0, un)
     return torch._int_mm(xp, wp.t())[:m, :n]
 

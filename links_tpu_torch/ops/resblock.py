@@ -23,6 +23,14 @@ weight's plane comes from ``weight_plane`` (one cast per weight version),
 x's from the split kernel (``split_planes``), h's from the forward's first
 product; an f32 gradient enters as two planes, hi and lo (16 significant
 bits). The forward then saves the x and h planes instead of x and h.
+
+For ``torch.export`` the forward is also a registered op,
+``links_tpu_torch::res_block_forward`` (``res_block_op``): a traced program
+cannot read a fake tensor's ``data_ptr`` nor branch on its device, so under
+export ``res_block`` emits the op, whose CUDA implementation is the kernel
+call above and whose CPU implementation is the plain forward. A process that
+loads such a program imports this module to register the op; the kernels
+are built at the op's first CUDA call. Eager callers keep the direct call.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import weakref
 
 import torch
 
-from links_tpu_torch.core.nn import Policy, dense, leaky_relu
+from links_tpu_torch.core.nn import BF16, F32, Policy, dense, leaky_relu
 
 NEG_SLOPE = 0.01
 _TILE = 64  # the kernels' output tile: the width must be a multiple
@@ -291,9 +299,30 @@ def kernel_saved(x, a1, h, a2, policy: Policy):
     return x, a1, h, a2
 
 
+@torch.library.custom_op("links_tpu_torch::res_block_forward", mutates_args=(),
+                         device_types="cpu")
+def res_block_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                 b2: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The block's forward ``y`` as a registered op (no gradient): on the CPU
+    the plain forward."""
+    return res_block_forward_reference(x, w1, b1, w2, b2, BF16 if bf16 else F32)[0]
+
+
+@res_block_op.register_kernel("cuda")
+def _res_block_op_cuda(x, w1, b1, w2, b2, bf16):
+    return res_block_forward(x, w1, b1, w2, b2, BF16 if bf16 else F32)[0]
+
+
+@res_block_op.register_fake
+def _res_block_op_fake(x, w1, b1, w2, b2, bf16):
+    return x.new_empty(x.shape, dtype=torch.float32)
+
+
 def res_block(x, w1, b1, w2, b2, policy: Policy):
     """The residual block, differentiable: the CUDA kernels for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors; the registered op under export."""
+    if torch.compiler.is_exporting():
+        return res_block_op(x, w1, b1, w2, b2, _is_bf16(policy))
     if x.device.type == "cpu":
         return res_block_reference(x, w1, b1, w2, b2, policy)
     return _ResBlock.apply(x, w1, b1, w2, b2, policy, res_block_forward, res_block_backward)

@@ -349,3 +349,83 @@ def test_attention_lifter_runs_its_blocks_on_the_kernel(cuda):
             K1.res_block_backward.launches - before[1]) == (5, 3)
     torch.testing.assert_close(depth.detach().cpu(), want[0].detach(), **TOL)
     torch.testing.assert_close(angle.detach().cpu(), want[1].detach(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [BF16, F32], ids=["bf16", "f32"])
+def test_registered_op_is_the_kernel_call(cuda, policy):
+    """links_tpu_torch::res_block_forward on CUDA tensors is K1's forward
+    call: one call of the wrapper, its y bitwise."""
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(256, 1024, generator=g).to(cuda)
+    w1, w2 = ((torch.randn(1024, 1024, generator=g) / 32).to(cuda) for _ in range(2))
+    b1, b2 = ((torch.randn(1024, generator=g) * 0.1).to(cuda) for _ in range(2))
+    before = K1.res_block_forward.launches
+    with torch.no_grad():
+        got = torch.ops.links_tpu_torch.res_block_forward(x, w1, b1, w2, b2, policy is BF16)
+        assert K1.res_block_forward.launches == before + 1
+        want = K1.res_block_forward(x, w1, b1, w2, b2, policy)[0]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [[], ["--policy", "bf16"]], ids=["f32", "bf16"])
+def test_artifact_exported_on_the_card_is_the_live_lift(cuda, tmp_path, flags):
+    """export_model on the card, loaded on the card: bitwise the live lift,
+    with its K1 forward calls (14 per chunk)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from links_tpu_torch import ckpt
+    from links_tpu_torch.ckpt.torch_io import save_lifter_pt
+    from links_tpu_torch.cli import export_model, lift
+
+    g = torch.Generator().manual_seed(14)
+    for side in ("left", "right"):
+        save_lifter_pt(Lifter(11, generator=g), tmp_path / f"{side}_lifter.pt")
+    poses = (torch.randn(300, 34, generator=g) * 0.1).numpy()
+    np.save(tmp_path / "p.npy", poses)
+    base = ["--model-dir", str(tmp_path), "--device", "cuda", *flags]
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = export_model.main(base + ["--out", str(tmp_path / "a.pt2")])
+        want = lift.main(base + ["--raw-2d", str(tmp_path / "p.npy"), "--batch-size", "300",
+                                 "--out", str(tmp_path / "o.npz")])
+    assert summary["verified"] is True
+    served = ckpt.load_exported(tmp_path / "a.pt2", cuda)
+    before = K1.res_block_forward.launches
+    got = served(torch.from_numpy(poses).to(cuda)).cpu().numpy()
+    assert K1.res_block_forward.launches - before == 14
+    np.testing.assert_array_equal(got.reshape(300, 3, 17), want)
+
+
+@pytest.mark.cuda
+def test_packed_feed_on_the_card(cuda, tmp_path):
+    """The packed feed on the card (pinned chunks, copies overlapping the next
+    gather): the batches of epoch_batches(shuffle_seed(generator)), in order,
+    with the generator's next draws."""
+    import numpy as np
+
+    from links_tpu_torch.data.native_loader import PackedDataset, pack_dataset
+    from links_tpu_torch.train.feed import PackedFeed, shuffle_seed
+    from links_tpu_torch.train.loop import run_epoch
+
+    data = torch.randn(1000, 34, generator=torch.Generator().manual_seed(15)).numpy()
+    pack_dataset(tmp_path / "p.lnks", data)
+    packed = PackedDataset(tmp_path / "p.lnks")
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    twin = torch.Generator(device=cuda).set_state(gen.get_state())
+    seen = []
+
+    def step(state, batch, draws):
+        seen.append(batch.clone())
+        return {"loss": batch.sum()}
+
+    run_epoch(step, None, PackedFeed(packed, cuda, chunk_steps=3), 64, gen)
+    want = list(packed.epoch_batches(64, shuffle_seed(twin)))
+    assert len(seen) == len(want) == 1000 // 64
+    for got, w in zip(seen, want):
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(), w)
+    packed.close()

@@ -167,12 +167,12 @@ def test_flow_trainers_save_every_due_epoch(pipeline, tmp_path, monkeypatch):
     # a ported flag beside a refused one: only the refused one is named
     (["--resume", "--distributed"], "^--distributed: not yet ported"),
     (["--save-every", "2", "--num-devices", "2"], "^--num-devices: not yet ported"),
-    (["--packed-data", "x.lnks"], "--packed-data: not yet ported"),
+    (["--packed-data", "x.lnks", "--distributed"], "^--distributed: not yet ported"),
     (["--distributed"], "--distributed: not yet ported"),
     (["--num-devices", "2"], "--num-devices: not yet ported"),
     (["--wandb"], "--wandb: not yet ported"),
     (["--select-by", "nll", "--wandb"], "^--wandb: not yet ported"),
-    (["--flip-guard", "3", "--packed-data", "x.lnks"], "^--packed-data: not yet ported"),
+    (["--flip-guard", "3", "--packed-data", "x.lnks", "--wandb"], "^--wandb: not yet ported"),
 ])
 def test_leg_torso_trainer_refuses_unported_flags(pipeline, flags, message):
     ws = pipeline[0]
@@ -242,7 +242,8 @@ def test_lift_scenario_serves_every_scenario_from_model_dir(pipeline, tmp_path, 
 
 @pytest.mark.parametrize("flags,message", [
     # a ported flag beside a refused one: only the refused one is named
-    (["--select-by", "mse", "--packed-data", "x.lnks"], "^--packed-data: not yet ported"),
+    (["--select-by", "mse", "--packed-data", "x.lnks", "--num-devices", "2"],
+     "^--num-devices: not yet ported"),
     (["--use-best", "--distributed"], "^--distributed: not yet ported"),
     (["--resume", "--num-devices", "2"], "^--num-devices: not yet ported"),
     (["--save-every", "2", "--wandb"], "^--wandb: not yet ported"),

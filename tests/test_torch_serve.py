@@ -3,7 +3,8 @@
 tests/test_serve.py holds the JAX package's), and the HTTP server on port 0
 (JSON and ``.npy`` requests against the JAX package's lift of the same
 weights, concurrent clients, bad input, ``--no-coalesce``, ``--fused`` and
-``--quant``, the refused ``--artifact``)."""
+``--quant``, an ``--artifact`` that is not one; tests/test_torch_export.py
+serves real artifacts)."""
 
 import contextlib
 import io
@@ -317,8 +318,9 @@ def test_serve_takes_lifts_serving_flags(weights, rng, flags, tmp_path):
     np.testing.assert_array_equal(np.asarray(out["poses_3d"], np.float32), want)
 
 
-def test_serve_refuses_an_artifact(weights):
+def test_serve_refuses_an_artifact(weights, tmp_path):
+    """--artifact naming no artifact is refused before the server starts."""
     ws, _ = weights
-    with pytest.raises(SystemExit, match="--artifact .* not yet ported"):
-        with _server(ws, "--artifact", "model.pt2"):
+    with pytest.raises(FileNotFoundError, match="no serving artifact"):
+        with _server(ws, "--artifact", str(tmp_path / "model.pt2")):
             pass
