@@ -28,8 +28,14 @@ Phases, each fatal on failure:
      lifters (--fused, --policy bf16), ``lift --mode leg_torso`` of the 3b
      lifters and ``lift --scenario`` of every occlusion scenario; then, on
      the model directory the trainers wrote, each path with its counts set
-     to 0 just before it: K1's f32 forward against its plain version at
-     eval's batches; ``links_tpu_torch.cli.eval_h36m`` with every occlusion
+     to 0 just before it: data parallelism (3a at full width on two gloo
+     ranks sharing the card, spawned by the phase, against the same steps
+     in one process, each rank's K1 calls counted and its parameters
+     bitwise rank 0's; the 3a trainer under ``python -m
+     torch.distributed.run`` as one NCCL rank against the main path's
+     epoch; ``--num-devices 2`` refused on one card); K1's f32 forward
+     against its plain version at eval's batches;
+     ``links_tpu_torch.cli.eval_h36m`` with every occlusion
      evaluation (--occlusion --dropout --from-detections on the detector
      split, f32) and with --mode leg_torso, counting K1's forward calls;
      eval's device math on the card against the CPU on 512 test poses; the
@@ -135,7 +141,7 @@ from links_tpu_torch.objectives.occlusion import (
 from links_tpu_torch.ops import _build
 from links_tpu_torch.ops import fused_infer as K2
 from links_tpu_torch.ops import resblock as K1
-from links_tpu_torch.train import feed, steps
+from links_tpu_torch.train import feed, parallel, steps
 from links_tpu_torch.train.optim import Adam
 
 # K2 vs plain version: rtol = atol. Both accumulate bf16 x bf16 products in
@@ -164,10 +170,12 @@ K1_BF16_ULP = 2.0 ** -7
 # one-term control, computed here in PyTorch, exceeds the limit.
 K1_FLIP_REL = 1e-5
 K1_FLIP_SHARE = 0.1
-# serving, ragged, one lifter at the main batch (stage 4's frozen legs and
-# torso lifters, and the chunks of lift --policy/--mode/--scenario), lifter
-# training step (2 x 256), stage-4 step ((2 + 1) x 256), validation
-K1_BATCHES = (1, 37, 256, 512, 768, 4096)
+# serving, ragged, a data-parallel rank's shard of the main batch (128 of
+# 256 on 2 ranks: stage 4's frozen lifters there), one lifter at the main
+# batch (stage 4's frozen legs and torso lifters, the chunks of lift
+# --policy/--mode/--scenario, and a 3a rank's augmented shard, 2 x 128),
+# lifter training step (2 x 256), stage-4 step ((2 + 1) x 256), validation
+K1_BATCHES = (1, 37, 128, 256, 512, 768, 4096)
 # One training step of each stage, card vs CPU (bf16 policy, batch 64): loss
 # terms within rtol = 1e-3, atol = 1e-4 and each gradient within a relative
 # L2 error of 2e-2. The sides differ by bf16 rounding flips of hidden
@@ -234,6 +242,27 @@ EXPORTS = {"3a f32": ([], [], 14), "3a bf16": (["--policy", "bf16"], ["--policy"
 # an artifact's lift against the live lift: the same kernels on the same
 # inputs, so expected bitwise; held within this (rtol = atol)
 EXPORT_TOL = 1e-5
+# Data parallelism: 3a at full width (bf16 policy) on DP_RANKS gloo ranks
+# that share the card (NCCL refuses two ranks on one card; gloo carries
+# all_reduce and broadcast for CUDA tensors), DP_STEPS steps of the global
+# batch MAIN_BATCH, against the same steps in one process on the card, with
+# the card-vs-CPU step bounds: each step's loss terms within STEP_RTOL and
+# STEP_ATOL, the first step's gradients within STEP_GRAD_REL, the parameters
+# within DP_LR_STEPS lr per step taken (one Adam step moves a coordinate by
+# up to lr whatever its gradient's size, so a coordinate whose gradient is
+# near zero can move lr one way in one run and lr the other way in the
+# other; bf16 moments stretch a later step by up to 2**-8, and the f32
+# weights round: 2 (1 + 2**-7)); every rank's parameters bitwise rank 0's.
+# The same bounds hold the trainer under python -m torch.distributed.run (one
+# NCCL rank) against the main path's in-memory 3a epoch. DP_TIMED_STEPS more
+# steps time a rank's step beside the one process's.
+DP_RANKS = 2
+DP_STEPS = 3
+DP_TIMED_STEPS = 5
+DP_LR_STEPS = 2 * (1 + 2 ** -7)
+# the loss terms of a lifter step
+LIFTER_TERMS = ("likeli", "likeli_left", "likeli_right", "L3d", "rep_rot", "re_rot_3d",
+                "bl_prior", "loss")
 # the gather rate at H36M's train size: rows of 34 f32 (204 MB), batches of 256
 GATHER_ROWS = 1_500_000
 # pose pairs of the metrics' timing (the order of H36M's test split)
@@ -865,6 +894,187 @@ def phase_main_path(stacked, tmp: Path) -> tuple[dict, dict]:
          f"launches " + ", ".join(f"{s} {counts['lift --scenario ' + s]['res_block_forward']}"
                                   for s in sorted(DROPOUT_SCENARIO_JOINTS)))
     return counts, summaries
+
+
+def _dp_steps(group: parallel.Group | None) -> dict:
+    """The data-parallel phase's 3a steps on the card (full width, bf16
+    policy, seeded weights, DP_STEPS global batches of MAIN_BATCH and their
+    global draws), in one process (``group`` None) or on this rank of a
+    group: the first step's loss terms and gradients and each step's loss
+    terms (averaged over the ranks), the parameters after the first step
+    and after the last, the largest gap of any parameter from rank 0's, the
+    K1 calls of the steps, and the host ms of a step over DP_TIMED_STEPS
+    more (the card synchronised before and after)."""
+    stage = _stage("3a", seed=3, batch=MAIN_BATCH)
+    dev = torch.device("cuda") if group is None else group.device
+    g = torch.Generator().manual_seed(13)
+    draws = [_to(stage.draw(g, MAIN_BATCH, "cpu"), dev) for _ in range(DP_STEPS)]
+    batches = [_synthetic_batch(MAIN_BATCH, seed=4 + i) for i in range(DP_STEPS)]
+    batches = [(b if group is None else parallel.rows(b, group)).to(dev) for b in batches]
+    model = parallel.replicate(stage.model.to(dev), group)
+    frozen = LifterFrozen(*(f.to(dev) for f in stage.frozen))
+
+    def mean(aux):
+        vals = torch.stack(list(aux.values()))
+        if group is not None:
+            parallel.all_reduce_mean_([vals], group)
+        return dict(zip(aux, vals.tolist()))
+
+    aux, grads = steps.build_left_right_grads(frozen, stage.cfg, None, group)(
+        model, batches[0], steps.shard_draws(draws[0], group))
+    if group is not None:
+        parallel.all_reduce_mean_(grads, group)
+    out = {"aux": mean(aux), "grads": [t.cpu() for t in grads], "losses": [], "params": []}
+    state = steps.TrainState(model, Adam(model.parameters(), stage.cfg.optim, 40))
+    step = steps.build_left_right_step(frozen, stage.cfg, None, group)
+    _reset_counts()
+    for i, (batch, draw) in enumerate(zip(batches, draws)):
+        out["losses"].append(mean(step(state, batch, draw)))
+        if i in (0, DP_STEPS - 1):
+            out["params"].append([p.detach().to("cpu", copy=True) for p in model.parameters()])
+    torch.cuda.synchronize()
+    out["counts"] = _counts()
+    out["gap"] = 0.0 if group is None else _gap_from_rank0(model)
+    if group is not None:
+        parallel.barrier(group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(DP_TIMED_STEPS):
+        step(state, batches[i % DP_STEPS], draws[i % DP_STEPS])
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) * 1e3 / DP_TIMED_STEPS
+    return out
+
+
+@torch.no_grad()
+def _gap_from_rank0(model) -> float:
+    """The largest difference of any parameter element of ``model`` from
+    rank 0's, over every rank (0.0: every rank holds rank 0's bit for bit)."""
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    ref = flat.clone()
+    torch.distributed.broadcast(ref, src=0)
+    gap = (flat - ref).abs().max().reshape(1)
+    torch.distributed.all_reduce(gap, op=torch.distributed.ReduceOp.MAX)
+    return float(gap)
+
+
+def _dp_rank(out: str, group: parallel.Group):
+    """A spawned rank of the data-parallel phase: ``_dp_steps`` into ``out``
+    (formatted with the rank)."""
+    full_f32_matmuls()
+    torch.save(_dp_steps(group), out.format(rank=group.rank))
+
+
+def _check_step_bounds(name: str, got: dict, want: dict, lr: float) -> str:
+    """``_dp_steps`` results against the one process's with the card-vs-CPU
+    step bounds. -> the line that reports the gaps."""
+    terms = [(a, b) for g, w in zip([got["aux"], *got["losses"]], [want["aux"], *want["losses"]])
+             for a, b in ((g[k], w[k]) for k in w)]
+    bad = [(a, b) for a, b in terms if not abs(a - b) <= STEP_ATOL + STEP_RTOL * abs(b)]
+    rel = max(float((a - b).norm() / b.norm().clamp_min(1e-12))
+              for a, b in zip(got["grads"], want["grads"]))
+    gaps = [max(float((a - b).abs().max()) for a, b in zip(g, w))
+            for g, w in zip(got["params"], want["params"])]
+    bound = DP_LR_STEPS * lr
+    if bad or rel > STEP_GRAD_REL or gaps[0] > bound or gaps[1] > bound * DP_STEPS:
+        raise AssertionError(f"{name} against one process: loss terms {bad[:3]}, gradients "
+                             f"rel L2 {rel:.3e}, parameters {gaps}")
+    worst = max(abs(a - b) / max(abs(b), 1e-12) for a, b in terms)
+    return (f"worst loss term rel err {worst:.2e} over {DP_STEPS} steps, first step's gradients "
+            f"rel L2 {rel:.2e} (bound {STEP_GRAD_REL}), parameters within {gaps[0]:.4e} after "
+            f"one step (bound {bound:.4e}) and {gaps[1]:.4e} after {DP_STEPS} (bound "
+            f"{bound * DP_STEPS:.4e})")
+
+
+def phase_data_parallel(data: Path, models: Path, tmp: Path, main_3a: dict) -> dict:
+    """Data parallelism on the card. Step level: 3a on DP_RANKS gloo ranks
+    sharing cuda:0 (spawned here) against the one process, both at full
+    width (``_dp_steps``), K1's calls counted on each rank. Entry point: the
+    3a trainer under ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 ... --distributed`` (one NCCL rank), one epoch on
+    the main path's corpus, flows and seed, against the main path's
+    in-memory epoch (``main_3a``: its summary); and ``--num-devices 2`` on
+    this one-card machine, which must be refused, naming the count. ->
+    counts by path."""
+    smi = _smi()
+    lr = LifterTrainConfig().optim.learning_rate
+    one = _dp_steps(None)
+    t0 = time.perf_counter()
+    parallel.spawn(_dp_rank, (str(tmp / "dp_rank{rank}.pt"),), ["cuda:0"] * DP_RANKS,
+                   backend="gloo")
+    SECONDS["data parallel: 2 gloo ranks"] = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"dp_rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+    want = {"res_block_forward": DP_STEPS * K1_FWD_PER_STEP,
+            "res_block_backward": DP_STEPS * K1_BWD_PER_STEP, "fused_sides_forward": 0}
+    for r, got in enumerate(ranks):
+        if got["counts"] != want or one["counts"] != want:
+            raise AssertionError(f"rank {r}: K1 calls in {DP_STEPS} 3a steps {got['counts']} "
+                                 f"(one process {one['counts']}), expected {want}")
+        if got["gap"] != 0.0 or not all(torch.equal(a, b) for a, b in
+                                        zip(got["params"][-1], ranks[0]["params"][-1])):
+            raise AssertionError(f"rank {r}'s parameters are not rank 0's: gap {got['gap']}")
+        report = _check_step_bounds(f"rank {r}", got, one, lr)
+        _log(f"[dp] 3a at hidden {HIDDEN}, global batch {MAIN_BATCH}, {DP_RANKS} gloo ranks "
+             f"on cuda:0, rank {r} against one process: {report}; parameters bitwise rank "
+             f"0's; K1 calls per step {got['counts']['res_block_forward'] // DP_STEPS} forward "
+             f"+ {got['counts']['res_block_backward'] // DP_STEPS} backward on "
+             f"{MAIN_BATCH // DP_RANKS} rows (+ as many samples)")
+    _log(f"[time] 3a step at global batch {MAIN_BATCH}, host ms over {DP_TIMED_STEPS} steps "
+         f"(the card synchronised around them): one process {one['ms']:.4f}; "
+         + ", ".join(f"rank {r} {got['ms']:.4f}" for r, got in enumerate(ranks))
+         + f" ({DP_RANKS} gloo ranks sharing the card: no scaling is claimed) on {smi}")
+    counts = {f"data parallel: 3a steps, {DP_RANKS} gloo ranks": {
+        k: sum(got["counts"][k] for got in ranks) for k in want}}
+
+    # the entry point under the launcher: one NCCL rank, the main path's epoch
+    ws = tmp / "dp_nccl"
+    ws.mkdir()
+    for f in ("full_flow.pt", "flow_left.pt", "flow_right.pt"):
+        shutil.copy2(models / f, ws / f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "links_tpu_torch.cli.train_left_right_lifter", "--distributed",
+           "--data", str(data), "--model-dir", str(ws), "--batch-size", str(MAIN_BATCH),
+           "--device", "cuda", "--epochs", "1", "--seed", "0"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
+                         text=True, timeout=600)
+    SECONDS["data parallel: torch.distributed.run"] = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"3a under torch.distributed.run exited {run.returncode}:\n"
+                             f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    summary = json.loads(run.stdout.strip().splitlines()[-1])
+    n_steps = 5 * TRAIN_POSES // MAIN_BATCH
+    bad = [k for k in LIFTER_TERMS if not abs(summary["last"][k] - main_3a["last"][k])
+           <= STEP_ATOL + STEP_RTOL * abs(main_3a["last"][k])]
+    gap, bitwise = 0.0, summary["last"] == main_3a["last"]
+    for f in LR_LIFTERS:
+        a, b = (torch.load(d / f, weights_only=True) for d in (ws, models))
+        gap = max(gap, max(float((a[k] - b[k]).abs().max()) for k in b))
+        bitwise = bitwise and all(torch.equal(a[k], b[k]) for k in b)
+    if summary.get("ranks") != 1 or summary["steps"] != n_steps or bad \
+            or gap > DP_LR_STEPS * lr * n_steps:
+        raise AssertionError(f"3a under torch.distributed.run against the main path's epoch: "
+                             f"{summary}; loss terms off {bad}; lifters within {gap:.3e}")
+    _log(f"[dp] 3a under torch.distributed.run --standalone --nproc_per_node 1 (--distributed, "
+         f"NCCL): {summary['steps']} steps, loss {summary['last']['loss']:.6f} against the main "
+         f"path's {main_3a['last']['loss']:.6f} (loss terms within rtol {STEP_RTOL}, atol "
+         f"{STEP_ATOL}); written lifters within {gap:.4e} of the main path's (bound "
+         f"{DP_LR_STEPS * lr * n_steps:.4e} over {n_steps} steps); record and lifters "
+         f"{'bitwise equal' if bitwise else 'not bitwise equal'} (one rank's batch is the "
+         f"global batch); {summary['poses_per_sec']} poses/s (a fresh process) against "
+         f"{main_3a['poses_per_sec']} on {smi}")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(["--data", str(data), "--model-dir", str(ws), "--device", "cuda",
+                            "--num-devices", "2"])
+    except SystemExit as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("--device cuda --num-devices 2 ran on a one-card machine")
+    if not refusal.startswith(f"--num-devices 2: {torch.cuda.device_count()} CUDA device"):
+        raise AssertionError(f"--num-devices 2 refused without naming the count: {refusal}")
+    _log(f"[dp] --device cuda --num-devices 2 on this machine: refused ({refusal})")
+    return counts
 
 
 def _eval_args(data: Path, models: Path, *flags) -> list:
@@ -1884,6 +2094,8 @@ def main() -> int:
         tmp = Path(tmp)
         counts, summaries = _timed("main path", phase_main_path, stacked, tmp)
         data, models = tmp / "synthetic.pkl", tmp / "models"
+        counts.update(_timed("data parallel", phase_data_parallel, data, models, tmp,
+                             summaries["3a"]))
         _, _, composed = _timed("K1 at the eval batches", phase_k1_eval_batches, data, models)
         counts.update(_timed("eval", phase_eval, data, models, composed))
         _timed("eval card vs CPU", phase_eval_card_vs_cpu, data, models)

@@ -10,7 +10,8 @@ update count, which the staircase learning rate reads), ``TrainState.step``,
 the epoch to start from, and the state of the run's ``torch.Generator``, so
 a resumed run draws the same permutations and noise as one that never
 stopped. The file is written atomically: a crash mid-write leaves the
-previous checkpoint.
+previous checkpoint. Under data parallelism rank 0 alone writes it and every
+rank resumes from it (``cli/_common.py:run_training``).
 """
 
 from __future__ import annotations

@@ -10,6 +10,10 @@ twins (``*_best.pt``, ``occlusion_model_weights_best/``), each described by
 a ``<artifact>_best.meta.json`` sidecar under the JAX package's artifact
 name, written after its weights; and each stage's run checkpoint
 ``<stage>_run.pt`` (``ckpt/run_io.py``).
+
+The trainers' data-parallel flags (``--num-devices``, ``--distributed``)
+are checked and their ranks set up by ``start_ranks`` before any data is
+read; under a group rank 0 alone writes (``run_training``).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from links_tpu_torch.data.datasets import (
 )
 from links_tpu_torch.data.synthetic import write_synthetic_pickle
 from links_tpu_torch.models.completers import COMPLETER_SPECS
+from links_tpu_torch.train import parallel
 
 # Artifact names of the flows (<name>.pt), as the JAX trainers' --save-pt names them
 FULL_FLOW = "full_flow"
@@ -172,10 +177,6 @@ def add_lifter_flags(parser: argparse.ArgumentParser):
     return parser
 
 
-# Flags of the JAX trainers that a later slice ports: accepted, then refused
-UNPORTED_TRAIN_FLAGS = ("distributed", "num_devices", "wandb")
-
-
 def add_train_flags(parser: argparse.ArgumentParser, bf16_opt_state_default: bool = False,
                     nll_cap_default: float | None = None):
     """The training flags of the JAX package's trainers that the port runs,
@@ -212,19 +213,76 @@ def add_train_flags(parser: argparse.ArgumentParser, bf16_opt_state_default: boo
                              "loader (data/native_loader.py, train/feed.py). When the file "
                              "exists the train split is not loaded; otherwise it is packed "
                              "from --data first (or with links_tpu_torch.cli.pack_data)")
-    parser.add_argument("--distributed", action="store_true", help="(not yet ported)")
-    parser.add_argument("--num-devices", type=int, default=None, help="(not yet ported)")
-    parser.add_argument("--wandb", action="store_true", help="(not yet ported)")
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="data-parallel ranks (default 1: one process on --device). N > 1 "
+                             "starts N local ranks, each on its shard of every batch: rank i "
+                             "on cuda:i (NCCL), or N gloo ranks under --device cpu. With "
+                             "--distributed it must equal the launcher's WORLD_SIZE")
+    parser.add_argument("--distributed", action="store_true",
+                        help="join the data-parallel group a launcher describes in the "
+                             "environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                             "MASTER_PORT), e.g. python -m torch.distributed.run --standalone "
+                             "--nproc_per_node N -m links_tpu_torch.cli.<trainer> "
+                             "--distributed; a CUDA rank computes on cuda:LOCAL_RANK")
+    parser.add_argument("--wandb", action="store_true",
+                        help="mirror the metric records to wandb when the package imports "
+                             "(otherwise a warning, and the JSONL log alone)")
+    parser.add_argument("--save-pt", action="store_true",
+                        help="accepted for the JAX trainers' command lines: the port always "
+                             "writes its reference-layout .pt files")
     return parser
 
 
-def refuse_unported(args, names=UNPORTED_TRAIN_FLAGS):
-    """Exit with a clear message when a flag that a later slice ports is set."""
-    given = [n for n in names if getattr(args, n, None) not in (None, False)]
-    if given:
-        flags = ", ".join("--" + n.replace("_", "-") for n in given)
-        raise SystemExit(f"{flags}: not yet ported to links_tpu_torch; "
-                         f"run them with the links_tpu trainers")
+# start_ranks' answer to the process that spawned the ranks of a run
+SPAWNED = "spawned"
+
+
+def _world_size(args, cfg, pairs: bool) -> int:
+    """Check the data-parallel flags before any data is read. -> the number
+    of ranks (1 without --distributed and --num-devices > 1)."""
+    n = args.num_devices
+    if n is not None and n < 1:
+        raise SystemExit(f"--num-devices {n}: at least 1 rank")
+    if args.distributed:
+        world = parallel.launcher_world_size()
+        if n is not None and n != world:
+            raise SystemExit(f"--num-devices {n}: the launcher started WORLD_SIZE={world} ranks")
+    else:
+        world = n or 1
+        if world > 1:
+            parallel.local_devices(torch.device(args.device), world)  # exits when too few cards
+    multiple = world * (2 if pairs else 1)
+    if (args.distributed or world > 1) and cfg.batch_size % multiple:
+        rule = (f"2 x {world} ranks: each rank's real and sampled halves pair their rows"
+                if pairs else f"{world} ranks")
+        raise SystemExit(f"--batch-size {cfg.batch_size}: not a multiple of {multiple} ({rule})")
+    return world
+
+
+def start_ranks(args, cfg, entry, argv, group: parallel.Group | None = None,
+                pairs: bool = False):
+    """The trainers' first step after their config (as the JAX trainers call
+    ``maybe_init_distributed`` after ``parse_args``): check the
+    data-parallel flags before any data is read (``pairs``: a lifter stage,
+    whose global batch must split into even shards), say once that
+    --save-pt has nothing to add, and set up the ranks. -> (group, device):
+    (None, --device) for one process; this rank's group and device under
+    --distributed or in a rank that ``spawn`` started (``group`` given);
+    (``SPAWNED``, None) in the process that ran ``entry(argv, group=...)``
+    on --num-devices local ranks, which have finished."""
+    if group is None:
+        world = _world_size(args, cfg, pairs)
+        if args.distributed:
+            resolve_device(args.device)  # refuses --device cuda without a card
+            group = parallel.init_from_env(torch.device(args.device))
+        if parallel.writes(group) and args.save_pt:
+            print("[links_tpu_torch] --save-pt: nothing to add, the port always writes its "
+                  "reference-layout .pt files", file=sys.stderr)
+        if world > 1 and not args.distributed:
+            parallel.spawn(entry, (argv,),
+                           parallel.local_devices(torch.device(args.device), world))
+            return SPAWNED, None
+    return group, resolve_device(str(group.device) if group is not None else args.device)
 
 
 def resolve_cfg(args, cfg):
@@ -330,13 +388,26 @@ def load_train_test(args):
             loader(path, test_s, normalize_func=norm, use_gt=use_gt, complete_only=co))
 
 
-def load_train_test_or_packed(args, test: bool = True):
+def load_train_test_or_packed(args, test: bool = True, group: parallel.Group | None = None):
     """(train split, test split, train rows, pack): ``load_train_test``, or
     ``load_train`` without ``test`` (the test split then None), except when
     --packed-data names an existing LNKS pack: the train split is then not
     loaded (None), its row count comes from the pack's header, and only the
     test split is. A --packed-data file that does not exist yet is packed
-    from the train split first. The pack is None without --packed-data."""
+    from the train split first. The pack is None without --packed-data.
+    With a ``group`` rank 0 loads first (writing the --synthetic corpus and
+    the pack when they are missing) and the other ranks after it."""
+    if group is None:
+        return _load_train_test_or_packed(args, test)
+    if not group.writes:
+        parallel.barrier(group)
+    out = _load_train_test_or_packed(args, test)
+    if group.writes:
+        parallel.barrier(group)
+    return out
+
+
+def _load_train_test_or_packed(args, test: bool):
     from links_tpu_torch.data.native_loader import PackedDataset
     from links_tpu_torch.train.feed import open_or_pack
 
@@ -349,14 +420,16 @@ def load_train_test_or_packed(args, test: bool = True):
     return train_data, test_data, len(train_data), packed
 
 
-def train_batches(train_data, packed, device):
-    """What the epochs read: the train split's 2D poses on ``device``, or
-    the packed feed of ``packed`` onto it."""
+def train_batches(train_data, packed, device, group: parallel.Group | None = None):
+    """What the epochs read: the train split's 2D poses on ``device`` (with
+    a ``group``, cut to a multiple of the world size), or the packed feed of
+    ``packed`` onto it."""
     if packed is not None:
         from links_tpu_torch.train.feed import PackedFeed
 
         return PackedFeed(packed, device)
-    return train_data.poses_2d.to(device)
+    poses = train_data.poses_2d
+    return poses[:parallel.trimmed(poses.shape[0], group)].to(device)
 
 
 def artifact(args, name: str) -> Path:
@@ -393,13 +466,13 @@ def save_artifact(args, name: str, module, best: bool = False):
         save(part, path)
 
 
-def clear_stage_artifacts(args, stage: str, names):
+def clear_stage_artifacts(args, stage: str, names, group: parallel.Group | None = None):
     """Remove this stage's artifacts of an earlier run (its run checkpoint,
     and the final and best weights and sidecar of each of ``names``) before
     a fresh run starts, so that no consumer or --resume reads a stale one as
-    this run's. A --resume run keeps them. The frozen inputs are never
-    touched."""
-    if getattr(args, "resume", False):
+    this run's. A --resume run keeps them, and only the writing rank of a
+    group removes them. The frozen inputs are never touched."""
+    if getattr(args, "resume", False) or not parallel.writes(group):
         return
     doomed = [artifact(args, f"{stage}_run.pt")]
     for name in names:
@@ -864,6 +937,26 @@ def log_record(fh, record: dict, **extra):
     fh.flush()
 
 
+def open_wandb(args, run_name: str, config: dict):
+    """--wandb, as the JAX package's ``MetricLogger``: the ``wandb`` module
+    with a run of project LInKs started (its name prefixed by ``run_name``),
+    which then receives every record; or None, with one warning on stderr,
+    when the package does not import or the run does not start. The JSONL
+    log is written either way."""
+    if not getattr(args, "wandb", False):
+        return None
+    try:
+        import wandb
+
+        wandb.init(project="LInKs", config=config)
+        wandb.run.name = f"{run_name} {wandb.run.name}"
+    except Exception as e:  # noqa: BLE001 - any failure falls back to the JSONL log
+        print(f"[links_tpu_torch] --wandb: {type(e).__name__}: {e}; the records go to the "
+              f"JSONL log only", file=sys.stderr)
+        return None
+    return wandb
+
+
 class TrainResult(NamedTuple):
     seconds: float  # in the epochs' steps
     steps: int      # taken by this run (a resumed run counts from its start)
@@ -874,7 +967,8 @@ class TrainResult(NamedTuple):
 def run_training(args, cfg, step, state, data, generator: torch.Generator,
                  log_name: str, config: dict, on_epoch, draw=None, *, stage: str,
                  save: Callable[[bool], None], tracker: BestTracker | None = None,
-                 best: dict | None = None, guard: FlipGuard | None = None) -> TrainResult:
+                 best: dict | None = None, guard: FlipGuard | None = None,
+                 group: parallel.Group | None = None) -> TrainResult:
     """The trainers' epoch loop (the JAX trainers' loop, one copy for all):
     with --resume, the run checkpoint ``<model-dir>/<stage>_run.pt`` first
     restores ``state`` and ``generator`` and the epoch to start from. Then
@@ -889,38 +983,59 @@ def run_training(args, cfg, step, state, data, generator: torch.Generator,
     or a stop: the stage's consumer-facing weights), then the run
     checkpoint. The records go to the JSONL log (``--log``, default
     ``<model-dir>/<log_name>.jsonl``, after one ``_config`` record) and the
-    lines to stdout; the timer's report to ``print_summary``."""
+    lines to stdout; the timer's report to ``print_summary``.
+
+    With a data-parallel ``group`` every rank steps (``step`` and ``draw``
+    as ``run_epoch`` takes them with a group) and resumes from the same
+    file; rank 0 alone validates (``on_epoch`` reduces nothing), keeps the
+    best, decides a --flip-guard stop and writes, and its record reaches
+    every rank, so all stop in the same epoch. Every rank waits for the
+    others before returning, so rank 0's files exist by then."""
     from links_tpu_torch.ckpt.run_io import maybe_resume, save_run
     from links_tpu_torch.train.loop import run_epoch
     from links_tpu_torch.train.steps import draw_step
 
+    writes = parallel.writes(group)
     start = maybe_resume(args, stage, state, generator)
+    if not writes:
+        tracker = guard = None
     if tracker is not None and getattr(args, "resume", False):
         # also when no run checkpoint exists yet: a best written before the
         # first --save-every epoch still sets the bar
         tracker.maybe_restore(args, next(iter(best)))
     log_path = Path(args.log) if args.log else Path(args.model_dir) / f"{log_name}.jsonl"
-    log_path.parent.mkdir(parents=True, exist_ok=True)
+    if writes:
+        log_path.parent.mkdir(parents=True, exist_ok=True)
+    wandb = open_wandb(args, log_name, config) if writes else None
     timer, step0, rec = EpochTimer().start(), state.step, {}
-    with log_path.open("a") as log:
-        log_record(log, {"_config": config})
+    with log_path.open("a") if writes else contextlib.nullcontext() as log:
+        if writes:
+            log_record(log, {"_config": config})
         for epoch in range(start, cfg.n_epochs):
             with timer.section("step"):  # run_epoch ends with a device read
                 rec = run_epoch(step, state, data, cfg.batch_size, generator,
-                                draw or draw_step)
-            with timer.section("validate"):
-                msg = on_epoch(epoch, rec)
-            if tracker is not None:
-                with timer.section("checkpoint"):
-                    if tracker.update(args, epoch, rec, best):
-                        msg += " [best]"
-            stop = guard is not None and guard.update(epoch, rec)
-            if stop:
-                rec["flip_guard_stop"] = 1.0
-            rec["epoch"] = epoch
-            log_record(log, rec, _step=epoch)
-            print(f"epoch {epoch}: {msg}", flush=True)
-            if stop or due(args, epoch, cfg.n_epochs, "save_every"):
+                                draw or draw_step, group)
+            stop = False
+            if writes:
+                with timer.section("validate"):
+                    msg = on_epoch(epoch, rec)
+                if tracker is not None:
+                    with timer.section("checkpoint"):
+                        if tracker.update(args, epoch, rec, best):
+                            msg += " [best]"
+                stop = guard is not None and guard.update(epoch, rec)
+                if stop:
+                    rec["flip_guard_stop"] = 1.0
+                rec["epoch"] = epoch
+                log_record(log, rec, _step=epoch)
+                if wandb is not None:
+                    wandb.log(rec)
+                print(f"epoch {epoch}: {msg}", flush=True)
+            if group is not None:
+                with timer.section("validate"):  # the others wait for rank 0's record
+                    rec = parallel.broadcast_object(rec, group)
+                stop = "flip_guard_stop" in rec
+            if writes and (stop or due(args, epoch, cfg.n_epochs, "save_every")):
                 with timer.section("checkpoint"):
                     if tracker is not None:
                         tracker.flush(args)
@@ -931,8 +1046,12 @@ def run_training(args, cfg, step, state, data, generator: torch.Generator,
         if tracker is not None:
             with timer.section("checkpoint"):
                 tracker.flush(args)
+        if group is not None:
+            parallel.barrier(group)
         steps = state.step - step0
-        report = timer.report(steps * cfg.batch_size)
+        report = timer.report(steps * cfg.batch_size) if writes else {}
+    if wandb is not None:
+        wandb.finish()
     if tracker is not None and tracker.gate_metric and tracker.gated_out:
         print(f"[links_tpu_torch] --select-by {args.select_by}: the flip alarm vetoed "
               f"{tracker.gated_out} improving epoch(s) (val_tilt >= 0)"
@@ -941,14 +1060,19 @@ def run_training(args, cfg, step, state, data, generator: torch.Generator,
     return TrainResult(timer.tot.get("step", 0.0), steps, rec, report)
 
 
-def print_summary(cfg, state, device, result: TrainResult):
-    """The trainers' one-line JSON summary: epochs, steps, device, the
-    seconds spent in this run's steps, poses/s, the timer's report and the
-    last epoch's record."""
+def print_summary(cfg, state, device, result: TrainResult,
+                  group: parallel.Group | None = None):
+    """The trainers' one-line JSON summary (rank 0's, under data
+    parallelism, with the number of ranks): epochs, steps, device, the
+    seconds spent in this run's steps, poses/s over the global batches, the
+    timer's report and the last epoch's record."""
+    if not parallel.writes(group):
+        return
     poses = result.steps * cfg.batch_size
+    ranks = {} if group is None else {"ranks": group.world}
     print(json.dumps({
         "epochs": cfg.n_epochs, "steps": state.step, "batch": cfg.batch_size,
-        "device": str(device), "seconds": round(result.seconds, 4),
+        "device": str(device), **ranks, "seconds": round(result.seconds, 4),
         "poses_per_sec": round(poses / result.seconds, 1) if result.seconds > 0 else None,
         **result.report,
         "last": {k: v for k, v in result.rec.items() if k != "epoch"},

@@ -22,6 +22,11 @@ and lifecycle; their ``.pt`` files hold the module's state dict (the
 reference has no such class), which ``lift``, ``eval_h36m``, ``serve`` and
 stage 4 read as they read the MLP pair.
 
+``--num-devices N`` trains on N local data-parallel ranks (each on its rows
+of every batch; ``--device cpu`` for gloo ranks on the CPU) and
+``--distributed`` on the ranks of a launcher (``python -m
+torch.distributed.run``); rank 0 writes every output (train/parallel.py).
+
 Usage:
     python -m links_tpu_torch.cli.train_left_right_lifter --data data/h36m_data.pkl \\
         --model-dir models -b 50 -t 10 -r 1 -o 1 -v 1 -l 1
@@ -43,6 +48,7 @@ from links_tpu_torch.objectives.lifter import (
     left_right_loss,
     lift_left_right_eval,
 )
+from links_tpu_torch.train import parallel
 from links_tpu_torch.train.optim import Adam
 from links_tpu_torch.train.steps import TrainState, build_left_right_step
 
@@ -63,7 +69,7 @@ def _validate(stacked, test_2d, test_3d, depth: float) -> dict[str, float]:
     return dict(zip(out, torch.stack(list(out.values())).tolist()))
 
 
-def main(argv=None):
+def main(argv=None, group=None):
     parser = argparse.ArgumentParser(
         description="Stage 3a: train the left/right side lifters (PyTorch port)")
     C.add_lifter_flags(parser)
@@ -75,25 +81,26 @@ def main(argv=None):
     C.add_common_flags(parser)
     C.add_train_flags(parser, bf16_opt_state_default=True, nll_cap_default=500.0)
     args = parser.parse_args(argv)
-    C.refuse_unported(args)
-    device = C.resolve_device(args.device)
-
     cfg = C.resolve_cfg(args, LifterTrainConfig(
         weight_bl=args.bl, depth=args.translation, weight_2d=args.rep2d,
         weight_3d=args.rot3d, weight_velocity=args.velocity, weight_likeli=args.likelihood))
-    train_data, test_data, n_train, packed = C.load_train_test_or_packed(args)
+    group, device = C.start_ranks(args, cfg, main, argv, group, pairs=True)
+    if group is C.SPAWNED:
+        return None  # the ranks have trained the stage
+    train_data, test_data, n_train, packed = C.load_train_test_or_packed(args, group=group)
     bone_means = C.resolve_bone_means(args, train_data).to(device)
     frozen = LifterFrozen(*(C.load_flow(args, name, device).requires_grad_(False)
                             for name in (C.FULL_FLOW, C.FLOW_LEFT, C.FLOW_RIGHT)))
     init = torch.Generator().manual_seed(args.seed)
     make = AttentionLifter if args.attention else Lifter
-    stacked = StackedLifter(make(SIDE_JOINTS, generator=init),
-                            make(SIDE_JOINTS, generator=init)).to(device)
-    steps_per_epoch = n_train // cfg.batch_size
+    stacked = parallel.replicate(StackedLifter(make(SIDE_JOINTS, generator=init),
+                                               make(SIDE_JOINTS, generator=init)).to(device),
+                                 group)
+    steps_per_epoch = parallel.trimmed(n_train, group) // cfg.batch_size
     state = TrainState(stacked, Adam(stacked.parameters(), cfg.optim, steps_per_epoch))
-    step = build_left_right_step(frozen, cfg, bone_means)
+    step = build_left_right_step(frozen, cfg, bone_means, group)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    data = C.train_batches(train_data, packed, device)
+    data = C.train_batches(train_data, packed, device, group)
     test_2d, test_3d = test_data.poses_2d.to(device), test_data.poses_3d.to(device)
 
     def on_epoch(epoch, rec):
@@ -108,7 +115,7 @@ def main(argv=None):
                     f" n-mpjpe_l={rec['mpjpe_scaled_left']:.2f}")
         return msg
 
-    C.clear_stage_artifacts(args, "left_right", [C.LIFTER_LR])
+    C.clear_stage_artifacts(args, "left_right", [C.LIFTER_LR], group)
     result = C.run_training(
         args, cfg, step, state, data, gen, "left_right_lifter",
         {"learning_rate": cfg.optim.learning_rate, "BATCH_SIZE": cfg.batch_size,
@@ -117,8 +124,8 @@ def main(argv=None):
         save=lambda final: final and C.save_artifact(args, C.LIFTER_LR, stacked),
         tracker=C.BestTracker(C.select_metric(args, "pa_mean"), C.select_gate(args),
                               deferred=True),
-        best={C.LIFTER_LR: stacked}, guard=C.FlipGuard(args.flip_guard))
-    C.print_summary(cfg, state, device, result)
+        best={C.LIFTER_LR: stacked}, guard=C.FlipGuard(args.flip_guard), group=group)
+    C.print_summary(cfg, state, device, result, group)
     return state
 
 

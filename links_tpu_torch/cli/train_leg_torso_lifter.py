@@ -18,6 +18,11 @@ from it), a JSONL log, one line per epoch on stdout and a one-line JSON
 summary. ``--flip-guard K`` stops the run after K depth-flipped validation
 epochs.
 
+``--num-devices N`` trains on N local data-parallel ranks (each on its rows
+of every batch; ``--device cpu`` for gloo ranks on the CPU) and
+``--distributed`` on the ranks of a launcher (``python -m
+torch.distributed.run``); rank 0 writes every output (train/parallel.py).
+
 Usage:
     python -m links_tpu_torch.cli.train_leg_torso_lifter --data data/h36m_data.pkl \\
         --model-dir models
@@ -34,6 +39,7 @@ from links_tpu_torch.config import LifterTrainConfig
 from links_tpu_torch.core.nn import F32
 from links_tpu_torch.models.lifters import LEG_JOINTS, TORSO_JOINTS, LegTorsoLifter, Lifter
 from links_tpu_torch.objectives.lifter import LifterFrozen, leg_torso_loss, lift_leg_torso_eval
+from links_tpu_torch.train import parallel
 from links_tpu_torch.train.optim import Adam
 from links_tpu_torch.train.steps import TrainState, build_leg_torso_step
 
@@ -51,7 +57,7 @@ def _validate(model, test_2d, test_3d, depth: float) -> dict[str, float]:
     return dict(zip(out, torch.stack(list(out.values())).tolist()))
 
 
-def main(argv=None):
+def main(argv=None, group=None):
     parser = argparse.ArgumentParser(
         description="Stage 3b: train the legs/torso lifters (PyTorch port)")
     C.add_lifter_flags(parser)
@@ -60,24 +66,25 @@ def main(argv=None):
     C.add_common_flags(parser)
     C.add_train_flags(parser, bf16_opt_state_default=True, nll_cap_default=500.0)
     args = parser.parse_args(argv)
-    C.refuse_unported(args)
-    device = C.resolve_device(args.device)
-
     cfg = C.resolve_cfg(args, LifterTrainConfig(
         weight_bl=args.bl, depth=args.translation, weight_2d=args.rep2d,
         weight_3d=args.rot3d, weight_velocity=args.velocity, weight_likeli=args.likelihood))
-    train_data, test_data, n_train, packed = C.load_train_test_or_packed(args)
+    group, device = C.start_ranks(args, cfg, main, argv, group, pairs=True)
+    if group is C.SPAWNED:
+        return None  # the ranks have trained the stage
+    train_data, test_data, n_train, packed = C.load_train_test_or_packed(args, group=group)
     bone_means = C.resolve_bone_means(args, train_data).to(device)
     frozen = LifterFrozen(*(C.load_flow(args, name, device).requires_grad_(False)
                             for name in (C.FULL_FLOW, C.FLOW_LEGS, C.FLOW_TORSO)))
     init = torch.Generator().manual_seed(args.seed)
-    model = LegTorsoLifter(Lifter(LEG_JOINTS, generator=init),
-                           Lifter(TORSO_JOINTS, generator=init)).to(device)
-    steps_per_epoch = n_train // cfg.batch_size
+    model = parallel.replicate(LegTorsoLifter(Lifter(LEG_JOINTS, generator=init),
+                                              Lifter(TORSO_JOINTS, generator=init)).to(device),
+                               group)
+    steps_per_epoch = parallel.trimmed(n_train, group) // cfg.batch_size
     state = TrainState(model, Adam(model.parameters(), cfg.optim, steps_per_epoch))
-    step = build_leg_torso_step(frozen, cfg, bone_means)
+    step = build_leg_torso_step(frozen, cfg, bone_means, group)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    data = C.train_batches(train_data, packed, device)
+    data = C.train_batches(train_data, packed, device, group)
     test_2d, test_3d = test_data.poses_2d.to(device), test_data.poses_3d.to(device)
 
     def on_epoch(epoch, rec):
@@ -96,7 +103,7 @@ def main(argv=None):
             C.save_artifact(args, C.LIFTER_LEGS, model.legs)
             C.save_artifact(args, C.LIFTER_TORSO, model.torso)
 
-    C.clear_stage_artifacts(args, "leg_torso", [C.LIFTER_LEGS, C.LIFTER_TORSO])
+    C.clear_stage_artifacts(args, "leg_torso", [C.LIFTER_LEGS, C.LIFTER_TORSO], group)
     result = C.run_training(
         args, cfg, step, state, data, gen, "leg_torso_lifter",
         {"learning_rate": cfg.optim.learning_rate, "BATCH_SIZE": cfg.batch_size,
@@ -104,8 +111,8 @@ def main(argv=None):
         stage="leg_torso", save=save,
         tracker=C.BestTracker(C.select_metric(args, "pa"), C.select_gate(args), deferred=True),
         best={C.LIFTER_LEGS: model.legs, C.LIFTER_TORSO: model.torso},
-        guard=C.FlipGuard(args.flip_guard))
-    C.print_summary(cfg, state, device, result)
+        guard=C.FlipGuard(args.flip_guard), group=group)
+    C.print_summary(cfg, state, device, result, group)
     return state
 
 

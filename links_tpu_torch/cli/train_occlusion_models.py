@@ -21,6 +21,11 @@ goes on from it), a JSONL log, one line per epoch on stdout and a one-line
 JSON summary. The frozen lifters are read as ``--use-best``/``--use-final``
 say (by default their best epoch's when the 3a/3b trainers wrote one).
 
+``--num-devices N`` trains on N local data-parallel ranks (each on its rows
+of every batch; ``--device cpu`` for gloo ranks on the CPU) and
+``--distributed`` on the ranks of a launcher (``python -m
+torch.distributed.run``); rank 0 writes every output (train/parallel.py).
+
 Usage:
     python -m links_tpu_torch.cli.train_occlusion_models --data data/h36m_data.pkl \\
         --model-dir models
@@ -40,6 +45,7 @@ from links_tpu_torch.config import OcclusionTrainConfig
 from links_tpu_torch.core.nn import F32
 from links_tpu_torch.models.completers import Completers
 from links_tpu_torch.objectives import occlusion as occ
+from links_tpu_torch.train import parallel
 from links_tpu_torch.train.optim import Adam
 from links_tpu_torch.train.steps import TrainState, build_occlusion_step, draw_occlusion
 
@@ -70,7 +76,7 @@ def _validate_unsup(completers, lifters, test_2d, depth: float) -> dict[str, flo
     return {"val_mse": float(loss)}
 
 
-def main(argv=None):
+def main(argv=None, group=None):
     parser = argparse.ArgumentParser(
         description="Stage 4: train the eight occlusion completers (PyTorch port)")
     parser.add_argument("-n", "--num_bases", type=int, default=26,
@@ -96,23 +102,24 @@ def main(argv=None):
     C.add_lr_pt_flags(parser)
     C.add_use_best_flag(parser)
     args = parser.parse_args(argv)
-    C.refuse_unported(args)
-    device = C.resolve_device(args.device)
-
     cfg = C.resolve_cfg(args, OcclusionTrainConfig(
         depth=args.translation, n_rot=args.aug_rotations, input_noise=args.aug_input_noise))
     if args.weight_decay is not None:
         cfg = dataclasses.replace(
             cfg, optim=dataclasses.replace(cfg.optim, weight_decay=args.weight_decay))
-    train_data, test_data, n_train, packed = C.load_train_test_or_packed(args)
+    group, device = C.start_ranks(args, cfg, main, argv, group)
+    if group is C.SPAWNED:
+        return None  # the ranks have trained the stage
+    train_data, test_data, n_train, packed = C.load_train_test_or_packed(args, group=group)
     lifters = {k: v.requires_grad_(False) for k, v in C.load_all_lifters(args, device).items()}
-    completers = Completers(generator=torch.Generator().manual_seed(args.seed)).to(device)
-    steps_per_epoch = n_train // cfg.batch_size
+    completers = parallel.replicate(
+        Completers(generator=torch.Generator().manual_seed(args.seed)).to(device), group)
+    steps_per_epoch = parallel.trimmed(n_train, group) // cfg.batch_size
     state = TrainState(completers, Adam(completers.parameters(), cfg.optim, steps_per_epoch))
-    step = build_occlusion_step(lifters["legs"], lifters["torso"], cfg)
+    step = build_occlusion_step(lifters["legs"], lifters["torso"], cfg, group)
     draw = functools.partial(draw_occlusion, n_rot=cfg.n_rot, input_noise=cfg.input_noise)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    data = C.train_batches(train_data, packed, device)
+    data = C.train_batches(train_data, packed, device, group)
     test_2d, test_3d = test_data.poses_2d.to(device), test_data.poses_3d.to(device)
 
     def on_epoch(epoch, rec):
@@ -126,7 +133,7 @@ def main(argv=None):
             msg += f" pa_left={rec['pa_left']:.2f} pa_torso={rec['pa_torso']:.2f}"
         return msg
 
-    C.clear_stage_artifacts(args, "occlusion", [C.OCCLUSION])
+    C.clear_stage_artifacts(args, "occlusion", [C.OCCLUSION], group)
     result = C.run_training(
         args, cfg, step, state, data, gen, "occlusion_models",
         {"num_bases": args.num_bases, "learning_rate": cfg.optim.learning_rate,
@@ -136,8 +143,8 @@ def main(argv=None):
         save=lambda final: final and C.save_artifact(args, C.OCCLUSION, completers),
         tracker=C.BestTracker("val_mse" if args.select_by == "mse" else "pa_scenario_mean",
                               deferred=True),
-        best={C.OCCLUSION: completers})
-    C.print_summary(cfg, state, device, result)
+        best={C.OCCLUSION: completers}, group=group)
+    C.print_summary(cfg, state, device, result, group)
     return state
 
 

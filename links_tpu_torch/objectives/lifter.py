@@ -16,7 +16,10 @@ legs/torso pair):
      losses: part-flow NLL, 3D consistency, 2D reprojection, pairwise
      deformation and the bone-length prior.
 The random draws are tensors the caller gives: torch cannot reproduce
-jax.random, and the tests hand both packages the same numbers.
+jax.random, and the tests hand both packages the same numbers. Under data
+parallelism (a ``group``, train/parallel.py) the elevation's mean and std
+are those of the global batch, as the JAX package's ``_batch_stats`` with an
+axis name computes them.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from links_tpu_torch.core.skeleton import (
     split_data_left_right,
     split_data_legs_torso,
 )
+from links_tpu_torch.train.parallel import all_reduce_sum
 
 
 def depth_to_camera_3d(poses_2d: torch.Tensor, pred: torch.Tensor,
@@ -99,16 +103,31 @@ def globalize(pose_51: torch.Tensor, depth_offset: float) -> torch.Tensor:
     return torch.cat([pose_51[:, :34], pose_51[:, 34:] + depth_offset], dim=1)
 
 
+def _global_stats(props: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mean and ddof=1 std of ``props`` over every rank's rows, from one
+    differentiable all-reduce of the sums of x and x^2."""
+    n = props.numel() * group.world
+    s1, s2 = all_reduce_sum(torch.stack([props.sum(), (props ** 2).sum()])) / n
+    var = (s2 - s1 ** 2) * (n / (n - 1))
+    return s1, torch.sqrt(torch.clamp(var, min=0.0))
+
+
 def sample_rotation(props: torch.Tensor, u_azim: torch.Tensor,
-                    eps_elev: torch.Tensor) -> torch.Tensor:
+                    eps_elev: torch.Tensor, group=None) -> torch.Tensor:
     """The augmentation rotation for (B, 1) predicted elevation angles, from
     the draws ``u_azim`` (B, 1) uniform on [0, 1) and ``eps_elev`` (B, 1)
     standard normal: azimuth (u - 0.5) 1.99 pi, elevation drawn from the
-    batch's mean and ddof=1 std of ``props``, composed with the per-sample
-    compensation Rcomp: R = Rx (Ry Rcomp)."""
+    batch's mean and ddof=1 std of ``props`` (with a ``group`` of more
+    than one rank, the global batch's; one rank's batch is the global
+    batch), composed with the per-sample compensation Rcomp: R = Rx (Ry
+    Rcomp)."""
     ry = rotation_about_y((u_azim - 0.5) * 1.99 * PI)
     r_comp = rotation_about_x(props)
-    x_ang = -props.mean() + props.std() * eps_elev
+    if group is None or group.world == 1:
+        x_ang = -props.mean() + props.std() * eps_elev
+    else:
+        mean, std = _global_stats(props, group)
+        x_ang = -mean + std * eps_elev
     return rotation_about_x(x_ang) @ (ry @ r_comp)
 
 
@@ -148,11 +167,12 @@ def _root_pinned(left_pred, right_pred, choice: str, n: int) -> torch.Tensor:
 
 def left_right_loss(stacked, frozen: LifterFrozen, inp_poses: torch.Tensor,
                     u_azim: torch.Tensor, eps_elev: torch.Tensor, cfg: LifterTrainConfig,
-                    policy: Policy = F32, bone_relations_mean=None):
+                    policy: Policy = F32, bone_relations_mean=None, group=None):
     """Stage-3a loss of a ``StackedLifter`` on (N, 34) poses already
     augmented with flow samples; ``u_azim`` and ``eps_elev`` (N, 1) are the
-    rotation's draws (``sample_rotation``); ``bone_relations_mean`` (16,)
-    defaults to H36M's. -> (loss, aux) with the JAX package's aux keys."""
+    rotation's draws (``sample_rotation``, with ``group``: only the
+    data-parallel step passes one); ``bone_relations_mean`` (16,) defaults
+    to H36M's. -> (loss, aux) with the JAX package's aux keys."""
     if bone_relations_mean is None:
         bone_relations_mean = BONE_RELATIONS_MEAN_H36M
     n = inp_poses.shape[0]
@@ -162,7 +182,7 @@ def left_right_loss(stacked, frozen: LifterFrozen, inp_poses: torch.Tensor,
     pred_left = _root_pinned(left_pred, right_pred, "left", n)
     pred_right = _root_pinned(left_pred, right_pred, "right", n)
 
-    R = sample_rotation(props, u_azim, eps_elev)
+    R = sample_rotation(props, u_azim, eps_elev, group)
     pred_3d_left = reconstruct_3d(inp_poses, torch.clamp(pred_left + cfg.depth, min=1.0))
     pred_3d_right = reconstruct_3d(inp_poses, torch.clamp(pred_right + cfg.depth, min=1.0))
     rot_poses_left = (R @ pred_3d_left).reshape(n, 51)
@@ -220,14 +240,14 @@ def left_right_loss(stacked, frozen: LifterFrozen, inp_poses: torch.Tensor,
 
 def leg_torso_loss(legs, torso, frozen: LifterFrozen, inp_poses: torch.Tensor,
                    u_azim: torch.Tensor, eps_elev: torch.Tensor, cfg: LifterTrainConfig,
-                   policy: Policy = F32, bone_relations_mean=None):
+                   policy: Policy = F32, bone_relations_mean=None, group=None):
     """Stage-3b loss of the legs (joints 0-6) and torso (7-16) ``Lifter``s
     on (N, 34) poses already augmented with flow samples: one combined depth
     vector, one rotation and reprojection, and the five losses of 3a, with
     the legs and torso flows (``frozen.part_a``, ``part_b``) as the
     likelihood. ``bone_relations_mean`` defaults to the MPI "vnect
-    interesting" means, as the reference's file does. -> (loss, aux) with
-    the JAX package's aux keys."""
+    interesting" means, as the reference's file does; ``group`` as
+    ``left_right_loss``. -> (loss, aux) with the JAX package's aux keys."""
     if bone_relations_mean is None:
         bone_relations_mean = BONE_RELATIONS_MEAN_MPI_VNECT_INTERESTING
     n = inp_poses.shape[0]
@@ -237,7 +257,7 @@ def leg_torso_loss(legs, torso, frozen: LifterFrozen, inp_poses: torch.Tensor,
     props = (legs_ang + torso_ang) / 2.0
     pred = pin_root(torch.cat([legs_pred, torso_pred], dim=1))
 
-    R = sample_rotation(props, u_azim, eps_elev)
+    R = sample_rotation(props, u_azim, eps_elev, group)
     pred_3d = reconstruct_3d(inp_poses, torch.clamp(pred + cfg.depth, min=1.0))
     rot_poses = (R @ pred_3d).reshape(n, 51)
     rot_2d = perspective_projection(globalize(rot_poses, cfg.depth))

@@ -10,7 +10,9 @@ order. The C++ gather of chunk i + 1 runs on a worker thread (the foreign
 call drops the GIL) while the steps of chunk i run; on the card each chunk
 lands in pinned host memory (two buffers, each reused only after its copy
 has finished) and is copied with ``non_blocking=True``. The ragged tail is
-dropped, as the in-memory epoch drops it.
+dropped, as the in-memory epoch drops it. Under data parallelism every rank
+draws the same seed and gathers the same chunks, and moves only its rows of
+each batch to its device.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from links_tpu_torch.data.native_loader import PackedDataset, pack_dataset
+from links_tpu_torch.train import parallel
 
 CHUNK_STEPS = 16
 
@@ -56,9 +59,11 @@ class PackedFeed:
         self.device = torch.device(device)
         self.chunk_steps = chunk_steps
 
-    def batches(self, batch_size: int, generator: torch.Generator):
+    def batches(self, batch_size: int, generator: torch.Generator,
+                group: parallel.Group | None = None):
         """Yield one epoch's (batch_size, D) batches on the device: the
-        permutation of ``shuffle_seed(generator)``, drawn at the first batch."""
+        permutation of ``shuffle_seed(generator)``, drawn at the first batch;
+        with a ``group``, this rank's (batch_size / W, D) rows of each."""
         n_batches = self.packed.n_rows // batch_size
         if n_batches < 1:
             raise ValueError(f"the pack's {self.packed.n_rows} rows make no batch of "
@@ -78,11 +83,15 @@ class PackedFeed:
             return self.packed.gather(start, steps[i] * batch_size,
                                       bufs[i % 2][:steps[i] * batch_size])
 
+        local = batch_size if group is None else batch_size // group.world
         with ThreadPoolExecutor(max_workers=1) as pool:
             nxt = pool.submit(gather, 0, 0)
             start = 0
             for i, nb in enumerate(steps):
                 host = nxt.result()
+                if group is not None:  # this rank's rows of each batch (a host copy)
+                    host = host.view(nb, group.world, local, -1)[:, group.rank].reshape(
+                        nb * local, -1)
                 chunk = host.to(self.device, non_blocking=True, copy=True)
                 if cuda:
                     copied[i % 2] = torch.cuda.Event()
@@ -91,4 +100,4 @@ class PackedFeed:
                 if i + 1 < len(steps):
                     nxt = pool.submit(gather, i + 1, start)
                 for j in range(nb):
-                    yield chunk[j * batch_size:(j + 1) * batch_size]
+                    yield chunk[j * local:(j + 1) * local]

@@ -9,6 +9,12 @@ its ``parameters()`` order is the order of the gradients and of ``Adam``'s
 state. A step takes its random numbers as tensors: one (B, 34) normal for
 the flow stages (``draw_noise``), a ``StepDraws`` for the lifter stages
 (``draw_step``), an ``OcclusionDraws`` for stage 4 (``draw_occlusion``).
+
+Data parallelism (train/parallel.py): with a ``group`` a step takes this
+rank's rows of the global batch and the step's global draws, of which it
+keeps its own rows (``shard_draws``); the lifter losses read the elevation
+statistics of the global batch, and the gradients are averaged over the
+ranks before Adam (whose global-norm clip thus sees the global gradient).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from links_tpu_torch.core.nn import BF16, F32
 from links_tpu_torch.objectives import flow_nll
 from links_tpu_torch.objectives import lifter as lifter_obj
 from links_tpu_torch.objectives import occlusion as occ_obj
+from links_tpu_torch.train import parallel
 from links_tpu_torch.train.optim import Adam
 
 
@@ -75,6 +82,34 @@ def draw_occlusion(generator: torch.Generator, batch: int, device, n_rot: int = 
     return OcclusionDraws(u_rot, eps)
 
 
+def _block_rows(x: torch.Tensor, group: parallel.Group, blocks: int) -> torch.Tensor:
+    """This rank's rows of each of the ``blocks`` equal blocks of ``x``'s
+    rows, concatenated in block order."""
+    return torch.cat([parallel.rows(part, group) for part in x.chunk(blocks)])
+
+
+def shard_draws(draws, group: parallel.Group | None):
+    """This rank's part of one step's global draws (unchanged without a
+    group). The global batch's rows ``[r b, (r + 1) b)`` are rank r's (b =
+    B / W), so: the latent noise (B, 34), those rows; the rotation draws
+    (2B, 1) index the augmented batch ``[real; samples]``, so those rows of
+    each half; stage 4's ``u_rot`` (n_rot, B, 1), those rows of each
+    rotation; its ``eps_input`` ((n_rot + 1) B, 3, 17), those rows of each of
+    the n_rot + 1 orientation blocks."""
+    if group is None:
+        return draws
+    if isinstance(draws, StepDraws):
+        return StepDraws(parallel.rows(draws.eps_noise, group),
+                         _block_rows(draws.u_azim, group, 2),
+                         _block_rows(draws.eps_elev, group, 2))
+    if isinstance(draws, OcclusionDraws):
+        u_rot = parallel.rows(draws.u_rot.transpose(0, 1), group).transpose(0, 1)
+        eps = (None if draws.eps_input is None
+               else _block_rows(draws.eps_input, group, draws.u_rot.shape[0] + 1))
+        return OcclusionDraws(u_rot, eps)
+    return parallel.rows(draws, group)
+
+
 def _policy(cfg):
     return BF16 if cfg.bf16 else F32
 
@@ -91,11 +126,15 @@ def _grads(loss_fn: Callable) -> Callable:
     return grads
 
 
-def _step(grads_fn: Callable) -> Callable:
+def _step(grads_fn: Callable, group: parallel.Group | None = None) -> Callable:
     """-> ``step(state, batch, draws) -> aux``: one update of ``state.model``
-    (``state.opt`` holds its parameters in order)."""
+    (``state.opt`` holds its parameters in order). With a ``group``,
+    ``batch`` is this rank's rows of the global batch and ``draws`` the
+    step's global draws; the aux terms are this rank's."""
     def step(state: TrainState, batch: torch.Tensor, draws) -> dict:
-        aux, grads = grads_fn(state.model, batch, draws)
+        aux, grads = grads_fn(state.model, batch, shard_draws(draws, group))
+        if group is not None:
+            parallel.all_reduce_mean_(grads, group)
         state.opt.step(grads)
         state.step += 1
         return aux
@@ -111,8 +150,8 @@ def build_full_flow_grads(cfg) -> Callable:
         flow, batch, eps, cfg.noise_factor, policy, cfg.nll_cap))
 
 
-def build_full_flow_step(cfg) -> Callable:
-    return _step(build_full_flow_grads(cfg))
+def build_full_flow_step(cfg, group: parallel.Group | None = None) -> Callable:
+    return _step(build_full_flow_grads(cfg), group)
 
 
 def build_part_flows_grads(full_flow: flows.Flow, cfg) -> Callable:
@@ -124,50 +163,54 @@ def build_part_flows_grads(full_flow: flows.Flow, cfg) -> Callable:
         parts, full_flow, batch, eps, cfg.noise_factor, policy, cfg.nll_cap))
 
 
-def build_part_flows_step(full_flow: flows.Flow, cfg) -> Callable:
-    return _step(build_part_flows_grads(full_flow, cfg))
+def build_part_flows_step(full_flow: flows.Flow, cfg,
+                          group: parallel.Group | None = None) -> Callable:
+    return _step(build_part_flows_grads(full_flow, cfg), group)
 
 
-def build_left_right_grads(frozen: lifter_obj.LifterFrozen, cfg,
-                           bone_relations_mean=None) -> Callable:
+def build_left_right_grads(frozen: lifter_obj.LifterFrozen, cfg, bone_relations_mean=None,
+                           group: parallel.Group | None = None) -> Callable:
     """Stage 3a: both side lifters (a ``StackedLifter``) on the batch
     augmented with samples of the frozen full flow. ``cfg``: a
-    ``LifterTrainConfig``; ``bone_relations_mean`` as ``left_right_loss``."""
+    ``LifterTrainConfig``; ``bone_relations_mean`` and ``group`` (the
+    global elevation statistics) as ``left_right_loss``."""
     policy = _policy(cfg)
 
     def loss_fn(model, batch: torch.Tensor, draws: StepDraws):
         inp = lifter_obj.augment_with_samples(frozen.full_flow, batch, draws.eps_noise,
                                               cfg.noise_factor, policy)
         return lifter_obj.left_right_loss(model, frozen, inp, draws.u_azim, draws.eps_elev,
-                                          cfg, policy, bone_relations_mean)
+                                          cfg, policy, bone_relations_mean, group)
 
     return _grads(loss_fn)
 
 
-def build_left_right_step(frozen: lifter_obj.LifterFrozen, cfg,
-                          bone_relations_mean=None) -> Callable:
-    return _step(build_left_right_grads(frozen, cfg, bone_relations_mean))
+def build_left_right_step(frozen: lifter_obj.LifterFrozen, cfg, bone_relations_mean=None,
+                          group: parallel.Group | None = None) -> Callable:
+    return _step(build_left_right_grads(frozen, cfg, bone_relations_mean, group), group)
 
 
-def build_leg_torso_grads(frozen: lifter_obj.LifterFrozen, cfg,
-                          bone_relations_mean=None) -> Callable:
+def build_leg_torso_grads(frozen: lifter_obj.LifterFrozen, cfg, bone_relations_mean=None,
+                          group: parallel.Group | None = None) -> Callable:
     """Stage 3b: the legs and torso lifters (a ``LegTorsoLifter``) on the
     batch augmented with samples of the frozen full flow, against the frozen
-    legs and torso flows. ``bone_relations_mean`` as ``leg_torso_loss``."""
+    legs and torso flows. ``bone_relations_mean`` and ``group`` as
+    ``leg_torso_loss``."""
     policy = _policy(cfg)
 
     def loss_fn(model, batch: torch.Tensor, draws: StepDraws):
         inp = lifter_obj.augment_with_samples(frozen.full_flow, batch, draws.eps_noise,
                                               cfg.noise_factor, policy)
         return lifter_obj.leg_torso_loss(model.legs, model.torso, frozen, inp, draws.u_azim,
-                                         draws.eps_elev, cfg, policy, bone_relations_mean)
+                                         draws.eps_elev, cfg, policy, bone_relations_mean,
+                                         group)
 
     return _grads(loss_fn)
 
 
-def build_leg_torso_step(frozen: lifter_obj.LifterFrozen, cfg,
-                         bone_relations_mean=None) -> Callable:
-    return _step(build_leg_torso_grads(frozen, cfg, bone_relations_mean))
+def build_leg_torso_step(frozen: lifter_obj.LifterFrozen, cfg, bone_relations_mean=None,
+                         group: parallel.Group | None = None) -> Callable:
+    return _step(build_leg_torso_grads(frozen, cfg, bone_relations_mean, group), group)
 
 
 def build_occlusion_grads(legs, torso, cfg) -> Callable:
@@ -185,5 +228,5 @@ def build_occlusion_grads(legs, torso, cfg) -> Callable:
     return _grads(loss_fn)
 
 
-def build_occlusion_step(legs, torso, cfg) -> Callable:
-    return _step(build_occlusion_grads(legs, torso, cfg))
+def build_occlusion_step(legs, torso, cfg, group: parallel.Group | None = None) -> Callable:
+    return _step(build_occlusion_grads(legs, torso, cfg), group)

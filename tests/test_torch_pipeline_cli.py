@@ -163,28 +163,42 @@ def test_flow_trainers_save_every_due_epoch(pipeline, tmp_path, monkeypatch):
         assert len(saved) == 2 * per_save, saved
 
 
+LAUNCHER_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+@pytest.fixture
+def no_launcher(monkeypatch):
+    """No launcher's variables: --distributed is refused."""
+    for var in LAUNCHER_VARS:
+        monkeypatch.delenv(var, raising=False)
+
+
 @pytest.mark.parametrize("flags,message", [
-    # a ported flag beside a refused one: only the refused one is named
-    (["--resume", "--distributed"], "^--distributed: not yet ported"),
-    (["--save-every", "2", "--num-devices", "2"], "^--num-devices: not yet ported"),
-    (["--packed-data", "x.lnks", "--distributed"], "^--distributed: not yet ported"),
-    (["--distributed"], "--distributed: not yet ported"),
-    (["--num-devices", "2"], "--num-devices: not yet ported"),
-    (["--wandb"], "--wandb: not yet ported"),
-    (["--select-by", "nll", "--wandb"], "^--wandb: not yet ported"),
-    (["--flip-guard", "3", "--packed-data", "x.lnks", "--wandb"], "^--wandb: not yet ported"),
+    # an accepted flag beside a refused one: only the refused one is named
+    (["--resume", "--distributed"], "^--distributed: .*not set"),
+    (["--save-every", "2", "--num-devices", "0"], "^--num-devices 0: "),
+    (["--packed-data", "x.lnks", "--distributed"], "^--distributed: .*not set"),
+    (["--distributed"], "--distributed: .*not set"),
+    (["--num-devices", "2", "--batch-size", "18"], "--batch-size 18: not a multiple of 4"),
+    (["--wandb", "--num-devices", "-1"], "--num-devices -1: "),
+    (["--select-by", "nll", "--save-pt", "--num-devices", "0"], "^--num-devices 0: "),
+    (["--flip-guard", "3", "--packed-data", "x.lnks", "--wandb", "--num-devices", "2",
+      "--device", "cuda"], r"^--num-devices 2: \d+ CUDA device"),
 ])
-def test_leg_torso_trainer_refuses_unported_flags(pipeline, flags, message):
+def test_leg_torso_trainer_refuses_unported_flags(pipeline, no_launcher, flags, message):
     ws = pipeline[0]
     with pytest.raises(SystemExit, match=message):
         stage3b.main(_args(ws, *flags))
 
 
 @pytest.mark.parametrize("module", [stage1, stage2], ids=["stage1", "stage2"])
-@pytest.mark.parametrize("flag", ["--distributed", "--wandb"])
-def test_flow_trainers_refuse_unported_flags(pipeline, module, flag):
-    with pytest.raises(SystemExit, match=f"{flag}: not yet ported"):
-        module.main(_args(pipeline[0], flag))
+@pytest.mark.parametrize("flags,message", [
+    (["--distributed"], "^--distributed: .*not set"),
+    (["--wandb", "--num-devices", "0"], "^--num-devices 0: "),
+], ids=["--distributed", "--wandb"])
+def test_flow_trainers_refuse_unported_flags(pipeline, no_launcher, module, flags, message):
+    with pytest.raises(SystemExit, match=message):
+        module.main(_args(pipeline[0], *flags))
 
 
 def test_missing_full_flow_is_named(pipeline, tmp_path):
@@ -241,15 +255,15 @@ def test_lift_scenario_serves_every_scenario_from_model_dir(pipeline, tmp_path, 
 
 
 @pytest.mark.parametrize("flags,message", [
-    # a ported flag beside a refused one: only the refused one is named
-    (["--select-by", "mse", "--packed-data", "x.lnks", "--num-devices", "2"],
-     "^--num-devices: not yet ported"),
-    (["--use-best", "--distributed"], "^--distributed: not yet ported"),
-    (["--resume", "--num-devices", "2"], "^--num-devices: not yet ported"),
-    (["--save-every", "2", "--wandb"], "^--wandb: not yet ported"),
-    (["--wandb"], "--wandb: not yet ported"),
+    # an accepted flag beside a refused one: only the refused one is named
+    (["--select-by", "mse", "--packed-data", "x.lnks", "--num-devices", "0"],
+     "^--num-devices 0: "),
+    (["--use-best", "--distributed"], "^--distributed: .*not set"),
+    (["--resume", "--num-devices", "3"], "^--batch-size 16: not a multiple of 3 "),
+    (["--save-every", "2", "--wandb", "--distributed"], "^--distributed: .*not set"),
+    (["--wandb", "--save-pt", "--num-devices", "0"], "--num-devices 0: "),
 ])
-def test_occlusion_trainer_refuses_unported_flags(pipeline, flags, message):
+def test_occlusion_trainer_refuses_unported_flags(pipeline, no_launcher, flags, message):
     with pytest.raises(SystemExit, match=message):
         stage4.main(_args(pipeline[0], *flags))
 

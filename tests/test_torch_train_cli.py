@@ -104,18 +104,25 @@ def test_seed_decides_the_run(run, trained, tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    # a ported flag beside a refused one: only the refused one is named
+    # an accepted flag beside a refused one: only the refused one is named
     (["--resume", "--attention", "--packed-data", "x.lnks", "--distributed"],
-     "^--distributed: not yet ported"),
-    (["--save-every", "2", "--packed-data", "x.lnks", "--wandb"], "^--wandb: not yet ported"),
-    (["--packed-data", "x.lnks", "--num-devices", "2"], "^--num-devices: not yet ported"),
-    (["--attention", "--num-devices", "2"], "^--num-devices: not yet ported"),
-    (["--select-by", "nll", "--wandb"], "^--wandb: not yet ported"),
-    (["--flip-guard", "3", "--distributed"], "^--distributed: not yet ported"),
-    (["--wandb"], "--wandb: not yet ported"),
-    (["--test-scale", "auto", "--num-devices", "2"], "^--num-devices: not yet ported"),
+     "^--distributed: .*not set"),
+    (["--save-every", "2", "--packed-data", "x.lnks", "--wandb", "--num-devices", "0"],
+     "^--num-devices 0: "),
+    (["--packed-data", "x.lnks", "--num-devices", "2", "--batch-size", "6"],
+     "^--batch-size 6: not a multiple of 4"),
+    (["--attention", "--num-devices", "2", "--device", "cuda"],
+     r"^--num-devices 2: \d+ CUDA device"),
+    (["--select-by", "nll", "--wandb", "--distributed"], "^--distributed: .*not set"),
+    (["--flip-guard", "3", "--save-pt", "--distributed"], "^--distributed: .*not set"),
+    (["--wandb", "--num-devices", "0"], "--num-devices 0: "),
+    (["--test-scale", "auto", "--num-devices", "2", "--batch-size", "10"],
+     "^--batch-size 10: not a multiple of 4"),
 ])
-def test_unported_flags_are_refused(run, flags, message):
+def test_unported_flags_are_refused(run, flags, message, monkeypatch):
+    """The data-parallel flags are checked before any data is read."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit, match=message):
         ttrain.main(_args(run, *flags))
 
