@@ -58,7 +58,16 @@ Phases, each fatal on failure:
      clients); the packed feed (``pack_data``, one 3a epoch with
      --packed-data creating its pack and one reading it, each with the
      in-memory epoch's K1 calls, and the gather rate at H36M's train size);
-     and the metrics' batched SVD at 500,000 poses, one call against chunks;
+     the visualisation data functions (``links_tpu_torch.viz``: a frame's
+     prediction and each occlusion scenario at B = 1, a 50-frame clip plain
+     and under --scenario, samples of the full and a part flow) against a
+     CPU copy of the models, their K1 calls counted exactly, and
+     ``links_tpu_torch.cli.visualise`` as a process (every mode's file, or
+     exit 2 without matplotlib); the pose discriminator, a LayerNorm lifter
+     and a dropout block against the CPU, and
+     ``links_tpu_torch.cli.preprocess`` on a small h5 tree (or exit 2
+     without h5py); and the metrics' batched SVD at 500,000 poses, one call
+     against chunks;
   5. time each stage's training step at batch 256, then K2, then the
      serving daemon's requests/s and lift's poses/s by serving flag, before
      any torch.profiler session (one often leaves the process slower); then the
@@ -67,7 +76,9 @@ Phases, each fatal on failure:
      and its bound. Kernels are timed on the device from a CUDA graph of
      their wrapper's calls, as the yardstick is, and eagerly beside it (the
      host's enqueue then sets the pace), with each CUDA kernel's device time
-     from torch.profiler (K2: one kernel per call).
+     from torch.profiler (K2: one kernel per call); K1's f32 forward also at
+     the visualised frame and clip (B = 1, 50); last, ``profiling.trace``
+     around one 3a step writes a Chrome trace holding the card's kernels.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -97,10 +108,12 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from links_tpu_torch import ckpt, metrics
+from links_tpu_torch import ckpt, metrics, viz
 from links_tpu_torch.ckpt.torch_io import load_lifter_pt, save_lifter_pt
 from links_tpu_torch.cli import _common as C
 from links_tpu_torch.cli import eval_h36m, export_model, lift, pack_data, run_pipeline, serve
+from links_tpu_torch.cli import preprocess as preprocess_cli
+from links_tpu_torch.cli import visualise
 from links_tpu_torch.cli._common import LR_LIFTERS
 from links_tpu_torch.cli import train_full_pose_norm_flow as flow1_cli
 from links_tpu_torch.cli import train_left_right_lifter as train_cli
@@ -128,6 +141,8 @@ from links_tpu_torch.models.lifters import (
     TORSO_JOINTS,
     LegTorsoLifter,
     Lifter,
+    PoseDiscriminator,
+    ResBlock,
     StackedLifter,
 )
 from links_tpu_torch.objectives import lifter as obj
@@ -141,7 +156,7 @@ from links_tpu_torch.objectives.occlusion import (
 from links_tpu_torch.ops import _build
 from links_tpu_torch.ops import fused_infer as K2
 from links_tpu_torch.ops import resblock as K1
-from links_tpu_torch.train import feed, parallel, steps
+from links_tpu_torch.train import feed, parallel, profiling, steps
 from links_tpu_torch.train.optim import Adam
 
 # K2 vs plain version: rtol = atol. Both accumulate bf16 x bf16 products in
@@ -263,6 +278,37 @@ DP_LR_STEPS = 2 * (1 + 2 ** -7)
 # the loss terms of a lifter step
 LIFTER_TERMS = ("likeli", "likeli_left", "likeli_right", "L3d", "rep_rot", "re_rot_3d",
                 "bl_prior", "loss")
+# The visualisation paths on the main path's models (f32 policy): each data
+# function of links_tpu_torch.viz on the card against the same call on a CPU
+# copy of the weights, its K1 forward calls counted: a frame's left/right
+# lift 14 (2 lifters x 7 blocks) at B = 1; a frame's occlusion scenario 31 (4
+# lifters x 7 + one completer's 3) at B = 1; a clip of VIZ_FRAMES frames 14,
+# under --scenario 45 (31 + the naive pair's 14); flow samples 0 (the flows
+# run no residual block). K1's f32 forward against its plain version differs
+# by ~1e-5 on activations of O(1); eval's metrics on the card were within
+# 4.86e-6 (relative) of the CPU's. So: aligned poses within VIZ_REL of their
+# ground truth's largest coordinate (mm, camera frame, z ~ 5000), a frame's
+# PA-MPJPE within EVAL_RTOL; flow samples (plain f32 torch ops on both sides,
+# 8 blocks forward and back) within VIZ_SAMPLE_TOL (rtol = atol).
+VIZ_FRAMES = 50
+VIZ_SCENARIO = "torso"
+VIZ_REL = 1e-4
+VIZ_SAMPLE_TOL = 1e-4
+VIZ_K1 = {"prediction": 2 * 7, "occlusion": 4 * 7 + 3, "video": 2 * 7,
+          "video --scenario": 4 * 7 + 3 + 2 * 7, "samples": 0}
+# visualise's modes, each run as its own process when matplotlib imports
+VIZ_MODES = {"gt3d": [], "gt3d 32slot": ["--style", "32slot"], "gt2d": [], "prediction": [],
+             "occlusion": [], "video": ["--frames", "8"],
+             "video --scenario": ["--frames", "8", "--scenario", VIZ_SCENARIO],
+             "samples": [], "samples part": ["--flow", "flow_left"]}
+# The API-parity models on the card against the CPU (f32, B = MAIN_BATCH): the
+# pose discriminator at hidden 1024 (one K1 forward call per call: only
+# res_common runs), a side lifter with LayerNorms and a residual block with
+# dropout given its masks (no K1 call: neither kernel computes them), within
+# API_TOL (rtol = atol; K1's f32 forward differs by ~1e-5, the composed ops
+# by f32 summation order only).
+API_TOL = 1e-4
+DROPOUT_RATE = 0.25
 # the gather rate at H36M's train size: rows of 34 f32 (204 MB), batches of 256
 GATHER_ROWS = 1_500_000
 # pose pairs of the metrics' timing (the order of H36M's test split)
@@ -1082,6 +1128,18 @@ def _eval_args(data: Path, models: Path, *flags) -> list:
             "--device", "cuda", *flags]
 
 
+def _k1_f32_forward_check(batch: int, why: str) -> float:
+    """K1's f32 forward against its plain version at ``batch``."""
+    x, w1, b1, w2, b2, _ = _k1_inputs(batch, seed=batch)
+    got = K1.res_block_forward(x, w1, b1, w2, b2, F32)
+    want = K1.res_block_forward_reference(x, w1, b1, w2, b2, F32)
+    errs = [_k1_check(f"res_block_forward f32 B={batch} {n}", g, w, "elementwise")
+            for n, g, w in zip(("y", "a1", "h", "a2"), got, want)]
+    _log(f"[kernel] res_block f32 B={batch} ({why}): max abs err forward "
+         f"y/a1/h/a2 {' '.join(f'{e:.2e}' for e in errs)}")
+    return max(errs)
+
+
 def phase_k1_eval_batches(data: Path, models: Path) -> list[int]:
     """K1's f32 forward against its plain version at the batches that eval's
     main-path call gives it and K1_BATCHES lacks: the complete frames of
@@ -1094,13 +1152,7 @@ def phase_k1_eval_batches(data: Path, models: Path) -> list[int]:
     composed = len(eval_h36m.detection_plan(missing)[3])
     batches = {complete, missing.shape[0], composed, EVAL_CHECK_POSES}
     for batch in sorted(batches - set(K1_BATCHES)):
-        x, w1, b1, w2, b2, _ = _k1_inputs(batch, seed=batch)
-        got = K1.res_block_forward(x, w1, b1, w2, b2, F32)
-        want = K1.res_block_forward_reference(x, w1, b1, w2, b2, F32)
-        errs = [_k1_check(f"res_block_forward f32 B={batch} {n}", g, w, "elementwise")
-                for n, g, w in zip(("y", "a1", "h", "a2"), got, want)]
-        _log(f"[kernel] res_block f32 B={batch} (an eval batch): max abs err forward "
-             f"y/a1/h/a2 {' '.join(f'{e:.2e}' for e in errs)}")
+        _k1_f32_forward_check(batch, "an eval batch")
     _log(f"[eval] eval batches: {complete} complete detector frames, {missing.shape[0]} frames "
          f"in all, {composed} composed, {EVAL_CHECK_POSES} for the card-vs-CPU check; K1_BATCHES "
          f"held {sorted(batches & set(K1_BATCHES))}")
@@ -1686,6 +1738,254 @@ def phase_attention(data: Path, models: Path, tmp: Path) -> dict:
     return counts
 
 
+def _close_to_scale(name: str, got: np.ndarray, want: np.ndarray, gt: np.ndarray) -> float:
+    """Aligned poses on the card against the CPU, pose by pose within
+    VIZ_REL of their ground truth's largest coordinate. -> the largest
+    error relative to that scale."""
+    n = gt.reshape(-1, 51).shape[0]
+    err = np.abs(got - want).reshape(n, 51).max(axis=1)
+    scale = np.abs(gt).reshape(n, 51).max(axis=1)
+    if not np.isfinite(got).all() or (err > VIZ_REL * scale).any():
+        raise AssertionError(f"viz {name}: card vs CPU off by {err.max():.3e} mm (largest "
+                             f"coordinate {scale.max():.1f} mm, bound {VIZ_REL} of it)")
+    return float((err / scale).max())
+
+
+def phase_viz(data: Path, models: Path) -> dict:
+    """links_tpu_torch.viz's data functions on the main path's models: each
+    on the card against the same call on a CPU copy of the weights, its K1
+    forward calls counted (VIZ_K1); K1's f32 forward against its plain
+    version at the clip's batch. -> counts by path."""
+    _k1_f32_forward_check(VIZ_FRAMES, "a visualised clip")
+    args = visualise.build_parser().parse_args(
+        ["--data", str(data), "--model-dir", str(models)])
+    test = C.load_test(args)
+    p2d, p3d = test.poses_2d, test.poses_3d
+    clip = slice(0, VIZ_FRAMES)
+    eps = torch.randn(8, 34, generator=torch.Generator().manual_seed(11))
+    eps_part = torch.randn(8, 22, generator=torch.Generator().manual_seed(12))
+    left_2d = split_data_left_right(p2d)[0]
+    calls = {"prediction": lambda m: viz.prediction_data(m["stacked"], p2d, p3d, 0)}
+    for s in DROPOUT_SCENARIO_JOINTS:
+        calls[f"occlusion {s}"] = (lambda m, s=s: viz.occlusion_data(
+            m["completers"], m["lifters"], p2d, p3d, 0, s))
+    calls["video"] = lambda m: viz.sequence_data(m["stacked"], p2d[clip], p3d[clip])
+    calls["video --scenario"] = lambda m: viz.occlusion_sequence_data(
+        m["completers"], m["lifters"], p2d[clip], p3d[clip], VIZ_SCENARIO)
+    calls["samples"] = lambda m: viz.flow_samples_data(m["full_flow"], p2d, eps)
+    calls["samples part"] = lambda m: viz.flow_samples_data(m["flow_left"], left_2d, eps_part)
+    out, counts = {}, {}
+    for side, dev in (("cpu", "cpu"), ("card", "cuda")):
+        lifters = C.load_all_lifters(args, dev)
+        m = {"stacked": StackedLifter(lifters["left"], lifters["right"]), "lifters": lifters,
+             "completers": C.load_completers(args, dev),
+             "full_flow": C.load_flow(args, C.FULL_FLOW, dev),
+             "flow_left": C.load_flow(args, C.FLOW_LEFT, dev)}
+        for name, call in calls.items():
+            _reset_counts()
+            out[side, name] = call(m)
+            if side == "card":
+                counts[name] = _counts()
+    worst, pa_worst, sample_worst = 0.0, 0.0, 0.0
+    for name in calls:
+        cpu, card = out["cpu", name], out["card", name]
+        kind = name.split()[0]
+        k1, expect = counts[name], VIZ_K1.get(name, VIZ_K1[kind])
+        if k1["res_block_forward"] != expect or k1["res_block_backward"] \
+                or k1["fused_sides_forward"]:
+            raise AssertionError(f"viz {name} launched {k1}, expected {expect} K1 forward calls")
+        if kind == "samples":
+            np.testing.assert_array_equal(card[0], cpu[0])
+            err = np.abs(card[1] - cpu[1])
+            if not np.isfinite(card[1]).all() \
+                    or (err > VIZ_SAMPLE_TOL + VIZ_SAMPLE_TOL * np.abs(cpu[1])).any():
+                raise AssertionError(f"viz {name}: card vs CPU samples off by {err.max():.3e}")
+            sample_worst = max(sample_worst, float(err.max()))
+            continue
+        np.testing.assert_array_equal(card[0], cpu[0])  # the ground truth
+        for g, w in zip(card[1:], cpu[1:]):
+            if isinstance(w, float):
+                if not abs(g - w) <= EVAL_RTOL * abs(w):
+                    raise AssertionError(f"viz {name}: PA-MPJPE {g!r} on the card, {w!r} on "
+                                         f"the CPU")
+                pa_worst = max(pa_worst, abs(g - w) / abs(w))
+            else:
+                worst = max(worst, _close_to_scale(name, g, w, cpu[0]))
+    by_path = {"viz prediction": counts["prediction"],
+               "viz occlusion (8 scenarios)": {k: sum(counts[f"occlusion {s}"][k]
+                                                      for s in DROPOUT_SCENARIO_JOINTS)
+                                               for k in counts["prediction"]},
+               "viz video": counts["video"], "viz video --scenario": counts["video --scenario"]}
+    _log(f"[viz] data functions card vs CPU (f32): aligned poses within {worst:.2e} of their "
+         f"largest coordinate (bound {VIZ_REL}), PA-MPJPE within {pa_worst:.2e} relative "
+         f"(bound {EVAL_RTOL}), flow samples within {sample_worst:.2e} (bound "
+         f"{VIZ_SAMPLE_TOL}); frame 0 PA-MPJPE {out['card', 'prediction'][2]:.2f} mm; K1 "
+         f"forward calls: prediction {counts['prediction']['res_block_forward']} (B=1), each "
+         f"occlusion scenario {counts['occlusion ll']['res_block_forward']} (B=1), video "
+         f"{counts['video']['res_block_forward']} and --scenario {VIZ_SCENARIO} "
+         f"{counts['video --scenario']['res_block_forward']} (B={VIZ_FRAMES}), samples 0")
+    return by_path
+
+
+def phase_visualise_cli(data: Path, models: Path, tmp: Path):
+    """``python -m links_tpu_torch.cli.visualise`` as its own process: with
+    matplotlib, every mode writes its file (the processes run side by
+    side); without it, the command exits 2 naming it before it reads any
+    data (its --data does not exist) and writes nothing."""
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    base = [sys.executable, "-m", "links_tpu_torch.cli.visualise", "--device", "cuda",
+            "--model-dir", str(models)]
+    if not have_mpl:
+        out = tmp / "refused.png"
+        run = subprocess.run(base + ["--data", str(tmp / "missing.pkl"), "--out", str(out)],
+                             cwd=Path(__file__).resolve().parent, capture_output=True,
+                             text=True, timeout=300)
+        if run.returncode != 2 or "matplotlib" not in run.stderr or out.exists():
+            raise AssertionError(f"visualise without matplotlib: exit {run.returncode}, "
+                                 f"stderr {run.stderr[-500:]!r}, wrote {out.exists()}")
+        _log(f"[viz] visualise without matplotlib: exit 2, '{run.stderr.strip()}'; no file")
+        return
+    procs = {}
+    for mode, flags in VIZ_MODES.items():
+        out = tmp / f"viz_{mode.replace(' ', '_')}.{'gif' if mode.startswith('video') else 'png'}"
+        procs[mode] = (out, subprocess.Popen(
+            base + ["--data", str(data), "--what", mode.split()[0], "--out", str(out), *flags],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    for mode, (out, proc) in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        if proc.returncode != 0 or not out.exists() or out.stat().st_size == 0 \
+                or stdout.strip().splitlines()[-1] != f"wrote {out}":
+            raise AssertionError(f"visualise --what {mode}: exit {proc.returncode}, "
+                                 f"{stdout[-300:]!r} {stderr[-500:]!r}")
+    _log(f"[viz] visualise wrote every mode's file: {', '.join(procs)}")
+
+
+def _h5_tree(root: Path) -> dict:
+    """A small h36m-fetch tree (2 subjects x 2 actions, 32-joint buffers)
+    -> the 17-joint 2D poses expected per subject."""
+    import h5py
+
+    rng = np.random.default_rng(0)
+    want = {}
+    for subject in ("S1", "S9"):
+        parts = []
+        for action, n in (("Eating", 3), ("Walking", 5)):
+            d = root / subject / action
+            d.mkdir(parents=True)
+            p2 = rng.normal(size=(n, 32, 2))
+            with h5py.File(d / "annot.h5", "w") as f:
+                g = f.create_group("pose")
+                g["2d"], g["3d"], g["3d-univ"] = p2, rng.normal(size=(n, 32, 3)), \
+                    rng.normal(size=(n, 32, 3))
+            parts.append(p2[:, [0, 1, 2, 3, 6, 7, 8, 12, 13, 14, 15, 17, 18, 19, 25, 26, 27]])
+        want[subject] = np.concatenate(parts)
+    return want
+
+
+def phase_api(tmp: Path) -> dict:
+    """The API-parity pieces on the card against the CPU (f32): the pose
+    discriminator at hidden 1024 (one K1 forward call per call), a side
+    lifter with LayerNorms and a residual block with dropout given its
+    masks (no K1 call), all within API_TOL; the discriminator's call timed
+    by ``profiling.step_time``; ``links_tpu_torch.cli.preprocess`` on a
+    small h5 tree when h5py imports, else its exit 2. -> counts by path."""
+    g = torch.Generator().manual_seed(21)
+    x16 = torch.randn(MAIN_BATCH, 32, generator=g) * 0.1
+    x11 = torch.randn(MAIN_BATCH, 22, generator=g) * 0.1
+    xh = torch.randn(MAIN_BATCH, HIDDEN, generator=g)
+    disc = PoseDiscriminator(16, HIDDEN, generator=g)
+    ln = Lifter(11, HIDDEN, use_layernorm=True, generator=g)
+    with torch.no_grad():
+        for p in ln.parameters():
+            if p.dim() == 1 and p.shape[0] == HIDDEN:  # LayerNorms and biases away from init
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+    block = ResBlock(HIDDEN, dropout_rate=DROPOUT_RATE, generator=g)
+    masks = tuple(torch.rand(MAIN_BATCH, HIDDEN, generator=g) >= DROPOUT_RATE for _ in "12")
+    calls = {"discriminator": (disc, lambda m, d: m(x16.to(d))),
+             "lifter --use-layernorm": (ln, lambda m, d: m(x11.to(d))),
+             "res block, dropout masks given": (
+                 block, lambda m, d: m(xh.to(d), F32, tuple(k.to(d) for k in masks)))}
+    counts, worst = {}, {}
+    want_k1 = {"discriminator": 1, "lifter --use-layernorm": 0,
+               "res block, dropout masks given": 0}
+    with torch.no_grad():
+        for name, (model, call) in calls.items():
+            cpu = call(model, "cpu")
+            card_model = copy.deepcopy(model).cuda()
+            _reset_counts()
+            card = call(card_model, "cuda")
+            torch.cuda.synchronize()
+            counts[name] = _counts()
+            if counts[name]["res_block_forward"] != want_k1[name] \
+                    or counts[name]["fused_sides_forward"] or counts[name]["res_block_backward"]:
+                raise AssertionError(f"{name} launched {counts[name]}, expected "
+                                     f"{want_k1[name]} K1 forward calls")
+            for got, want in zip(card if isinstance(card, tuple) else (card,),
+                                 cpu if isinstance(cpu, tuple) else (cpu,)):
+                err = (got.cpu() - want).abs()
+                if not bool(torch.isfinite(got).all()) \
+                        or bool((err > API_TOL + API_TOL * want.abs()).any()):
+                    raise AssertionError(f"{name}: card vs CPU off by {float(err.max()):.3e}")
+                worst[name] = max(worst.get(name, 0.0), float(err.max()))
+        disc_card = copy.deepcopy(disc).cuda()
+        x16c = x16.cuda()
+        disc_ms = profiling.step_time(disc_card, x16c) * 1e3
+    try:
+        import h5py  # noqa: F401
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+    out = tmp / "preprocessed.pkl"
+    printed = io.StringIO()
+    if have_h5py:
+        want = _h5_tree(tmp / "processed")
+        with contextlib.redirect_stdout(printed):
+            got = preprocess_cli.main(["--h36m-dir", str(tmp / "processed"), "--out", str(out)])
+        if sorted(got) != sorted(want) or any(not np.array_equal(got[s]["poses_2d"], want[s])
+                                              for s in want) or not out.exists():
+            raise AssertionError("preprocess: the pickle is not the 17-joint subset of the tree")
+        prep = f"wrote {out.name}: {', '.join(printed.getvalue().splitlines()[:-1])}"
+    else:
+        with contextlib.redirect_stderr(printed):
+            try:
+                preprocess_cli.main(["--h36m-dir", str(tmp), "--out", str(out)])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        if code != 2 or "h5py" not in printed.getvalue() or out.exists():
+            raise AssertionError(f"preprocess without h5py: exit {code}, "
+                                 f"{printed.getvalue()!r}")
+        prep = f"no h5py: exit 2, '{printed.getvalue().strip()}'"
+    _log(f"[api] card vs CPU (f32, B={MAIN_BATCH}): discriminator (hidden {HIDDEN}) "
+         f"{worst['discriminator']:.2e}, 1 K1 forward call, {disc_ms:.4f} ms per call "
+         f"(profiling.step_time, host clock); lifter --use-layernorm "
+         f"{worst['lifter --use-layernorm']:.2e} and res block with dropout masks "
+         f"{worst['res block, dropout masks given']:.2e}, 0 K1 calls (bound {API_TOL}); "
+         f"preprocess: {prep}")
+    return {"discriminator": counts["discriminator"]}
+
+
+def phase_trace(step, tmp: Path):
+    """``profiling.trace`` around one 3a training step (after every timed
+    phase: a process that ran the profiler is often slower afterwards): a
+    Chrome trace with the card's kernels in it."""
+    with profiling.trace(str(tmp / "trace")) as log_dir:
+        step()
+        torch.cuda.synchronize()
+    path = Path(log_dir) / "trace.json"
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if not kernels:
+        raise AssertionError(f"profiling.trace wrote {len(events)} events, no kernel")
+    _log(f"[api] profiling.trace around one 3a step: {path.stat().st_size} bytes, "
+         f"{len(events)} events, {kernels} kernels on the card")
+
+
 def _lift_rate(served: list, flags: list, out: Path) -> float:
     """lift's own poses/s (timed after its warm-up chunk) of 2 TEST_POSES poses."""
     with contextlib.redirect_stdout(io.StringIO()) as text:
@@ -1918,7 +2218,8 @@ def phase_k1_times(smi):
     of the training steps (stage 4's frozen lifters 256, the lifter steps 2 x
     256, stage 4's completers 3 x 256) and the validation batch; the f32
     policy at the serving batch (lift, serve and the artifact run chunks of
-    256) and the validation batch (the validation lifts run f32). The
+    256) and the validation batch (the validation lifts run f32); the f32
+    forward alone at the visualised frame (B = 1) and clip (VIZ_FRAMES). The
     kernels run with a warm weight-plane cache; the cast of one weight is
     timed beside them. The kernel's graph and eager times and the library's
     are the least of three runs each, taken in turns. -> rows by (batch,
@@ -1928,8 +2229,11 @@ def phase_k1_times(smi):
     _log(f"[time] weight cast to bf16 ({HIDDEN} x {HIDDEN}): {cast_ms:.4f} ms, "
          f"{K1_CASTS_PER_STEP} per training step: {K1_CASTS_PER_STEP * cast_ms:.4f} ms on {smi}")
     rows = {}
-    for batch, policy, pname in ((256, BF16, "bf16"), (512, BF16, "bf16"), (768, BF16, "bf16"),
-                                 (4096, BF16, "bf16"), (256, F32, "f32"), (4096, F32, "f32")):
+    both = ("forward", "backward")
+    for batch, policy, pname, directions in (
+            (256, BF16, "bf16", both), (512, BF16, "bf16", both), (768, BF16, "bf16", both),
+            (4096, BF16, "bf16", both), (256, F32, "f32", both), (4096, F32, "f32", both),
+            (1, F32, "f32", ("forward",)), (VIZ_FRAMES, F32, "f32", ("forward",))):
         x, w1, b1, w2, b2, dy = _k1_inputs(batch, seed=2000 + batch)
         plain_saved = K1.res_block_forward_reference(x, w1, b1, w2, b2, policy)[1:]
         xs, a1, hs, a2 = K1.kernel_saved(x, *plain_saved, policy)
@@ -1944,6 +2248,8 @@ def phase_k1_times(smi):
                 ("backward", lambda: K1.res_block_backward(dy, xs, w1, w2, a1, hs, a2, policy),
                  lambda: K1.res_block_backward_reference(dy, x, w1, w2, *plain_saved, policy),
                  lib_b, bounds[1])):
+            if which not in directions:
+                continue
             graph = _graphed(kernel)[0]
             runs = [(_time_ms(graph.replay), _time_ms(kernel), _time_ms(lib.replay))
                     for _ in range(3)]
@@ -2104,6 +2410,9 @@ def main() -> int:
         counts.update(_timed("quant checks", phase_quant, data, models, tmp))
         counts.update(_timed("serve checks", phase_serve, data, models, tmp))
         counts.update(_timed("attention checks", phase_attention, data, models, tmp))
+        counts.update(_timed("viz", phase_viz, data, models))
+        _timed("visualise", phase_visualise_cli, data, models, tmp)
+        counts.update(_timed("api", phase_api, tmp))
         smi = _smi()
         _log(smi)
         counts.update(_timed("export", phase_export, data, models, tmp, smi))
@@ -2117,6 +2426,8 @@ def main() -> int:
         _timed(f"step profile {name}", phase_step_profile, name, step, smi)
     k1_rows, cast_ms = _timed("K1 times", phase_k1_times, smi)
     _timed("K2 kernels", phase_k2_kernels, prep, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        _timed("trace", phase_trace, profiles["3a"][1], Path(tmp))
     _log(f"[phase] host seconds, {time.perf_counter() - t_start:.1f} s in all: "
          + ", ".join(f"{k} {v:.2f}" for k, v in SECONDS.items()))
 

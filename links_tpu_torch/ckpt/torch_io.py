@@ -4,10 +4,12 @@ of links_tpu/ckpt/torch_io.py).
 Lifters and completers use the reference-layout ``.pt`` files: ``{upscale,
 downscale, angles}.{weight, bias}`` and ``res_*.{l1, l2}.{weight, bias}``
 with torch's (out, in) weights, plus ``res_*.{bn1, bn2}.*`` LayerNorm
-tensors that the reference always constructs and no path uses (written at
-their defaults, ignored on load). A completer file also holds the
-reference's constructed-but-unused ``res_common`` block (written as zeros,
-ignored on load). An attention lifter (models/attention.py), which the
+tensors that the reference always constructs: a model built with
+``use_layernorm`` writes and reads its own, any other writes them at their
+defaults and ignores them on load (the JAX package's loaders take the same
+flag). A completer file also holds the reference's constructed-but-unused
+``res_common`` block (written as zeros, ignored on load). The pose
+discriminator's file is the reference's layout of its three blocks. An attention lifter (models/attention.py), which the
 reference lacks, is saved as its state dict, and ``load_lifter_pt`` tells it
 by its ``qkv`` key, as the JAX package's ``lifter_apply`` dispatches on the
 ``qkv`` leaf. Flows use FrEIA's ``SequenceINN`` layout
@@ -28,7 +30,12 @@ from links_tpu_torch.flows.coupling import Flow
 from links_tpu_torch.models import attention
 from links_tpu_torch.models.attention import AttentionLifter
 from links_tpu_torch.models.completers import BLOCKS, Completer
-from links_tpu_torch.models.lifters import CHAIN, Lifter
+from links_tpu_torch.models.lifters import (
+    CHAIN,
+    DISCRIMINATOR_BLOCKS,
+    Lifter,
+    PoseDiscriminator,
+)
 
 
 def atomic_save(obj, path) -> None:
@@ -46,8 +53,9 @@ def _t(a) -> torch.Tensor:
 
 def _params_from_jax(tree, linears, blocks) -> dict[str, torch.Tensor]:
     """A links_tpu pytree as numpy (``{"upscale": {"w": (in, out), "b":
-    (out,)}, "res_pose1": {"l1": {...}, "l2": {...}}, ...}``) -> the port's
-    state dict of those linears and residual blocks."""
+    (out,)}, "res_pose1": {"l1": {...}, "l2": {...}[, "ln1": {"scale",
+    "bias"}, "ln2": ...]}, ...}``) -> the port's state dict of those linears
+    and residual blocks, LayerNorms as ``bn1``/``bn2``."""
     def linear(prefix, p):
         return {f"{prefix}.weight": torch.from_numpy(np.asarray(p["w"], np.float32).T.copy()),
                 f"{prefix}.bias": torch.from_numpy(np.asarray(p["b"], np.float32).copy())}
@@ -58,6 +66,10 @@ def _params_from_jax(tree, linears, blocks) -> dict[str, torch.Tensor]:
     for blk in blocks:
         for l in ("l1", "l2"):
             sd.update(linear(f"{blk}.{l}", tree[blk][l]))
+        for ln, bn in (("ln1", "bn1"), ("ln2", "bn2")):
+            if ln in tree[blk]:
+                sd[f"{blk}.{bn}.weight"] = _t(tree[blk][ln]["scale"])
+                sd[f"{blk}.{bn}.bias"] = _t(tree[blk][ln]["bias"])
     return sd
 
 
@@ -86,6 +98,12 @@ def completer_params_from_jax(tree) -> dict[str, torch.Tensor]:
     return _params_from_jax(tree, ("upscale", "downscale"), BLOCKS)
 
 
+def pose_discriminator_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """A links_tpu pose-discriminator pytree as numpy -> the port's
+    ``PoseDiscriminator`` state dict."""
+    return _params_from_jax(tree, ("upscale", "downscale"), DISCRIMINATOR_BLOCKS)
+
+
 def _module_from_state_dict(make, state_dict: dict, unused: tuple, device):
     """``make(hidden, in_dim, out_dim)`` built on the meta device and loaded
     from ``state_dict`` without its keys that contain any of ``unused``;
@@ -101,8 +119,9 @@ def _module_from_state_dict(make, state_dict: dict, unused: tuple, device):
 
 def _save_pt(module, path, blocks, zero_blocks=()) -> None:
     """Write ``module``'s state dict as a reference-layout ``.pt``, with the
-    default LayerNorm tensors of ``blocks`` and ``zero_blocks``, and the
-    weights of ``zero_blocks`` (constructed, unused) as zeros."""
+    default LayerNorm tensors of those of ``blocks`` and ``zero_blocks`` that
+    have none, and the weights of ``zero_blocks`` (constructed, unused) as
+    zeros."""
     sd = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
     hidden = module.upscale.weight.shape[0]
     for blk in zero_blocks:
@@ -111,59 +130,96 @@ def _save_pt(module, path, blocks, zero_blocks=()) -> None:
             sd[f"{blk}.{l}.bias"] = torch.zeros(hidden)
     for blk in (*blocks, *zero_blocks):
         for bn in ("bn1", "bn2"):
-            sd[f"{blk}.{bn}.weight"] = torch.ones(hidden)
-            sd[f"{blk}.{bn}.bias"] = torch.zeros(hidden)
+            sd.setdefault(f"{blk}.{bn}.weight", torch.ones(hidden))
+            sd.setdefault(f"{blk}.{bn}.bias", torch.zeros(hidden))
     atomic_save(sd, path)
 
 
-def lifter_from_state_dict(state_dict: dict, device="cpu") -> Lifter | AttentionLifter:
-    """Build a ``Lifter`` of the state dict's width (``bn*`` keys ignored),
-    or an ``AttentionLifter`` of its joints, heads and width when it holds a
-    ``qkv`` weight; every other key must match."""
+def _unused(use_layernorm: bool, *more: str) -> tuple:
+    """The state-dict keys a loader drops: the LayerNorm tensors unless the
+    model is built ``use_layernorm``, and ``more``."""
+    return (*more, *(() if use_layernorm else (".bn",)))
+
+
+def lifter_from_state_dict(state_dict: dict, device="cpu",
+                           use_layernorm: bool = False) -> Lifter | AttentionLifter:
+    """Build a ``Lifter`` of the state dict's width (its ``bn*`` keys read
+    with ``use_layernorm``, else ignored), or an ``AttentionLifter`` of its
+    joints, heads and width when it holds a ``qkv`` weight; every other key
+    must match."""
     if "qkv.weight" in state_dict:
         joints, heads = state_dict["pos"].shape[0], state_dict["qkv.weight"].shape[1]
         return _module_from_state_dict(
             lambda hidden, *_: AttentionLifter(joints, heads, hidden), state_dict, (), device)
-    return _module_from_state_dict(lambda hidden, in_dim, _: Lifter(in_dim // 2, hidden),
-                                   state_dict, (".bn",), device)
+    return _module_from_state_dict(
+        lambda hidden, in_dim, _: Lifter(in_dim // 2, hidden, use_layernorm=use_layernorm),
+        state_dict, _unused(use_layernorm), device)
 
 
-def load_lifter_pt(path, device="cpu") -> Lifter | AttentionLifter:
-    """A lifter checkpoint -> ``Lifter`` (reference layout) or
-    ``AttentionLifter`` (its state dict)."""
+def load_lifter_pt(path, device="cpu", use_layernorm: bool = False) -> Lifter | AttentionLifter:
+    """A lifter checkpoint -> ``Lifter`` (reference layout; LayerNorms read
+    with ``use_layernorm``) or ``AttentionLifter`` (its state dict)."""
     return lifter_from_state_dict(
-        torch.load(path, map_location="cpu", weights_only=True), device)
+        torch.load(path, map_location="cpu", weights_only=True), device, use_layernorm)
 
 
 def save_lifter_pt(lifter: Lifter | AttentionLifter, path) -> None:
     """Write ``lifter``: a ``Lifter`` as a reference-layout ``.pt``, with the
-    default LayerNorm tensors the reference's loaders expect; an
-    ``AttentionLifter`` as its state dict."""
+    default LayerNorm tensors the reference's loaders expect when it has
+    none; an ``AttentionLifter`` as its state dict."""
     if isinstance(lifter, AttentionLifter):
         atomic_save({k: v.detach().cpu().clone() for k, v in lifter.state_dict().items()}, path)
     else:
         _save_pt(lifter, path, CHAIN)
 
 
-def completer_from_state_dict(state_dict: dict, device="cpu") -> Completer:
+def completer_from_state_dict(state_dict: dict, device="cpu",
+                              use_layernorm: bool = False) -> Completer:
     """Build a ``Completer`` of the state dict's width and part sizes; the
-    ``bn*`` and ``res_common`` keys are ignored, every other key must match."""
+    ``res_common`` keys are ignored, the ``bn*`` keys too unless
+    ``use_layernorm``; every other key must match."""
     return _module_from_state_dict(
-        lambda hidden, in_dim, out_dim: Completer(in_dim // 3, out_dim // 3, hidden),
-        state_dict, (".bn", "res_common."), device)
+        lambda hidden, in_dim, out_dim: Completer(in_dim // 3, out_dim // 3, hidden,
+                                                  use_layernorm=use_layernorm),
+        state_dict, _unused(use_layernorm, "res_common."), device)
 
 
-def load_completer_pt(path, device="cpu") -> Completer:
+def load_completer_pt(path, device="cpu", use_layernorm: bool = False) -> Completer:
     """A reference-layout ``.pt`` completer checkpoint -> ``Completer``."""
     return completer_from_state_dict(
-        torch.load(path, map_location="cpu", weights_only=True), device)
+        torch.load(path, map_location="cpu", weights_only=True), device, use_layernorm)
 
 
 def save_completer_pt(completer: Completer, path) -> None:
     """Write ``completer`` as a reference-layout ``.pt``: the keys of the JAX
     package's ``completer_to_torch``, with the zero ``res_common`` block and
-    the default LayerNorm tensors."""
+    the default LayerNorm tensors where it has none."""
     _save_pt(completer, path, BLOCKS, zero_blocks=("res_common",))
+
+
+def pose_discriminator_from_state_dict(state_dict: dict, device="cpu",
+                                       use_layernorm: bool = False) -> PoseDiscriminator:
+    """Build a ``PoseDiscriminator`` of the state dict's width and joints
+    (its ``bn*`` keys read with ``use_layernorm``, else ignored); every
+    other key must match."""
+    return _module_from_state_dict(
+        lambda hidden, in_dim, _: PoseDiscriminator(in_dim // 2, hidden,
+                                                    use_layernorm=use_layernorm),
+        state_dict, _unused(use_layernorm), device)
+
+
+def load_pose_discriminator_pt(path, device="cpu",
+                               use_layernorm: bool = False) -> PoseDiscriminator:
+    """A reference-layout ``.pt`` pose-discriminator checkpoint ->
+    ``PoseDiscriminator``."""
+    return pose_discriminator_from_state_dict(
+        torch.load(path, map_location="cpu", weights_only=True), device, use_layernorm)
+
+
+def save_pose_discriminator_pt(discriminator: PoseDiscriminator, path) -> None:
+    """Write ``discriminator`` as a reference-layout ``.pt`` (its three
+    blocks, with the default LayerNorm tensors where it has none)."""
+    _save_pt(discriminator, path, DISCRIMINATOR_BLOCKS)
 
 
 def flow_params_from_jax(params, perm) -> dict[str, torch.Tensor]:

@@ -91,6 +91,43 @@ class Linear(nn.Module):
         return dense(x, self.weight, self.bias, policy)
 
 
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis (biased variance), as the JAX package's
+    ``layernorm``, op for op."""
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * weight + bias
+
+
+class LayerNorm(nn.Module):
+    """``layernorm`` with the reference's ``nn.LayerNorm`` state-dict keys
+    (``weight``, ``bias``), at torch's defaults (ones, zeros)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(x, self.weight, self.bias)
+
+
+def dropout(x: torch.Tensor, rate: float, keep: torch.Tensor | None = None,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout: kept elements scaled by 1 / (1 - rate), the rest 0.
+    The keep-mask is ``keep`` (bool, x's shape), or is drawn from
+    ``generator`` (each element kept with probability 1 - rate, drawn on the
+    generator's device)."""
+    if rate == 0.0:
+        return x
+    if keep is None:
+        if generator is None:
+            raise ValueError("dropout needs a keep-mask or a generator to draw it from")
+        keep = torch.rand(x.shape, generator=generator, device=generator.device) < 1.0 - rate
+    return torch.where(keep.to(x.device), x / (1.0 - rate), 0.0)
+
+
 def full_f32_matmuls():
     """Keep f32 matmuls in f32 on the card: the f32 serving path is the
     eval-parity path, and TF32 keeps only ~3 decimal digits."""

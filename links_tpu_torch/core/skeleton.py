@@ -101,6 +101,20 @@ def split_data_left_right(data):
     return _split(data, 2, LEFT_IDX, RIGHT_IDX)
 
 
+def split_data_left_right_v2(data):
+    """The arm-swapped variant: (B, 34) -> (left (B, 22), right (B, 22))."""
+    return _split(data, 2, LEFT_IDX_V2, RIGHT_IDX_V2)
+
+
+def temporal_split_data_left_right(data):
+    """2-frame temporal variant: (B, 68) laid out (2 frames, 2 coords, 17)
+    -> (left (B, 44), right (B, 44)). No entry point uses it."""
+    x = data.reshape(-1, 2, 2, NUM_JOINTS)
+    left = x[:, :, :, _on(LEFT_IDX, x)].reshape(-1, 44)
+    right = x[:, :, :, _on(RIGHT_IDX, x)].reshape(-1, 44)
+    return left, right
+
+
 def split_data_left_right_3d(data):
     """(B, 51) -> two (B, 33): (the left split, the right split).
 
@@ -124,6 +138,16 @@ def _combine_lr(left_split, right_split, choice, ncoords):
     r = right_split.reshape(-1, ncoords, 11)[:, :, col]
     mask = _COMBINE_FROM_RIGHT_RIGHT if choice == "right" else _COMBINE_FROM_RIGHT_LEFT
     return torch.where(_on(mask, l), r, l)
+
+
+def combine_left_right_pred_3d(left_split, right_split, choice):
+    """Merge (B, 33) + (B, 33) part predictions -> (B, 51)."""
+    return _combine_lr(left_split, right_split, choice, 3).reshape(-1, 51)
+
+
+def combine_left_right_pred_2d(left_split, right_split, choice):
+    """Merge (B, 22) + (B, 22) -> (B, 34)."""
+    return _combine_lr(left_split, right_split, choice, 2).reshape(-1, 34)
 
 
 def combine_left_right_pred_1d(left_split, right_split, choice):
@@ -154,8 +178,29 @@ def combine_pose_and_limb(pose, limb, which_limb: str):
     return full.reshape(-1, 51)
 
 
+def _bone_lengths(poses, njoints: int, bone_map: np.ndarray):
+    p = poses.reshape(-1, 3, njoints)
+    bones = p[:, :, _on(bone_map[:, 0], p)] - p[:, :, _on(bone_map[:, 1], p)]
+    return torch.linalg.vector_norm(bones, dim=1)
+
+
 def get_bone_lengths_all(poses):
     """(B, 51) 3D poses -> (B, 16) lengths of the BONE_MAP_ALL bones."""
-    p = poses.reshape(-1, 3, NUM_JOINTS)
-    bones = p[:, :, _on(BONE_MAP_ALL[:, 0], p)] - p[:, :, _on(BONE_MAP_ALL[:, 1], p)]
-    return torch.linalg.vector_norm(bones, dim=1)
+    return _bone_lengths(poses, NUM_JOINTS, BONE_MAP_ALL)
+
+
+def get_bone_lengths_legs(poses):
+    """(B, 21) leg poses -> (B, 6)."""
+    return _bone_lengths(poses, 7, BONE_MAP_LEGS)
+
+
+def get_bone_lengths_torso(poses):
+    """(B, 30) torso poses -> (B, 10), after prepending a zero root joint."""
+    p = poses.reshape(-1, 3, 10)
+    root = torch.zeros(p.shape[0], 3, 1, dtype=p.dtype, device=p.device)
+    return _bone_lengths(torch.cat([root, p], dim=2), 11, BONE_MAP_TORSO)
+
+
+def get_bone_lengths_left_right(poses):
+    """(B, 33) side poses -> (B, 10)."""
+    return _bone_lengths(poses, 11, BONE_MAP_LEFT_RIGHT)

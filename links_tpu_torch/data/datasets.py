@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from links_tpu_torch.core.geometry import normalize_maxabs
+from links_tpu_torch.core.skeleton import split_data_left_right
 
 TRAIN_SUBJECTS = ("S1", "S5", "S6", "S7", "S8")
 TEST_SUBJECTS = ("S9", "S11")
@@ -91,6 +92,37 @@ def load_mpi_inf_3dhp(file_name, subjects: Sequence[str] = MPI_SUBJECTS,
     two_d, three_d = _load_pickle_subjects(file_name, subjects, "poses_3d_univ",
                                            use_gt, complete_only)
     return _build(two_d, three_d, joints, normalize_func, use_gt)
+
+
+def _numpy(poses) -> np.ndarray:
+    return poses.detach().cpu().numpy() if isinstance(poses, torch.Tensor) else np.asarray(poses)
+
+
+def fit_part_pca(poses_2d):
+    """The reference dataset's left/right PCA fit (no loss reads it): (N, 34)
+    2D poses -> (left PCA, right PCA) fitted sklearn objects, or None
+    without sklearn."""
+    try:
+        from sklearn.decomposition import PCA
+    except ImportError:
+        return None
+    left, right = split_data_left_right(torch.as_tensor(_numpy(poses_2d)))
+    lp, rp = PCA(), PCA()
+    lp.fit(left.numpy())
+    rp.fit(right.numpy())
+    return lp, rp
+
+
+def fit_full_pose_pca(poses_2d):
+    """The reference's full-pose PCA fit (no entry point reads it): (N, 34)
+    2D poses -> a fitted sklearn PCA, or None without sklearn."""
+    try:
+        from sklearn.decomposition import PCA
+    except ImportError:
+        return None
+    pca = PCA()
+    pca.fit(_numpy(poses_2d))
+    return pca
 
 
 def save_pickle(path, processed: dict):

@@ -101,3 +101,7 @@ class Flow(nn.Module):
         super().__init__()
         self.module_list = nn.ModuleList(
             CouplingBlock(dim, hidden, generator=generator) for _ in range(n_blocks))
+
+    @property
+    def dim(self) -> int:
+        return self.module_list[0].w_perm.shape[0]

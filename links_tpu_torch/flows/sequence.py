@@ -50,12 +50,14 @@ def nll_mean(z: torch.Tensor, logdet: torch.Tensor, cap: float = 0.0) -> torch.T
 
 @torch.no_grad()
 def draw_samples(flow: Flow, x: torch.Tensor, eps: torch.Tensor, noise_factor: float = 0.2,
-                 policy: Policy = F32) -> torch.Tensor:
+                 policy: Policy = F32, zero_root: bool = True) -> torch.Tensor:
     """Encode ``x``, perturb the latents with the standard-normal draw
-    ``eps`` (x's shape), decode, and pin the root joint to the origin. No
-    gradient flows into the sampler."""
+    ``eps`` (x's shape), decode, and (with ``zero_root``) pin the root joint
+    to the origin. No gradient flows into the sampler."""
     z, _ = forward(flow, x, policy)
     samples, _ = inverse(flow, add_noise(z, noise_factor, eps), policy)
+    if not zero_root:
+        return samples
     nj = samples.shape[-1] // 2
     samples = samples.reshape(-1, 2, nj).clone()
     samples[:, :, 0] = 0.0

@@ -10,8 +10,9 @@ Each completer infills a hidden part of a 3D pose from the other joints:
 with (in_joints, out_joints) (14, 3) for the four limb predictors, (11, 6)
 for both legs and for each side, (7, 10) for the torso. Module names are the
 reference's state-dict keys (ckpt/torch_io.py adds the reference's unused
-``res_common`` block and LayerNorm tensors on save and ignores them on
-load).
+``res_common`` block on save and ignores it on load; a block's LayerNorm
+tensors are written at their defaults when it has none, and read only into
+a ``use_layernorm`` completer).
 
 The JAX package runs same-shaped completers as vmapped groups; here the
 eight run one after the other, which is the same function.
@@ -44,11 +45,11 @@ class Completer(nn.Module):
     """(B, 3 in_joints) partial 3D pose -> (B, 3 out_joints) infilled part."""
 
     def __init__(self, in_joints: int, out_joints: int, hidden: int = HIDDEN, *,
-                 generator: torch.Generator | None = None):
+                 use_layernorm: bool = False, generator: torch.Generator | None = None):
         super().__init__()
         self.upscale = Linear(3 * in_joints, hidden, generator=generator)
         for name in BLOCKS:
-            setattr(self, name, ResBlock(hidden, generator=generator))
+            setattr(self, name, ResBlock(hidden, use_layernorm=use_layernorm, generator=generator))
         self.downscale = Linear(hidden, 3 * out_joints, generator=generator)
 
     def forward(self, x: torch.Tensor, policy: Policy = F32) -> torch.Tensor:
@@ -62,6 +63,8 @@ class Completers(nn.ModuleDict):
     """The eight completers keyed by name, in ``COMPLETER_SPECS`` order.
     Built on the CPU from ``generator``."""
 
-    def __init__(self, hidden: int = HIDDEN, *, generator: torch.Generator | None = None):
-        super().__init__({name: Completer(*spec, hidden, generator=generator)
+    def __init__(self, hidden: int = HIDDEN, *, use_layernorm: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__({name: Completer(*spec, hidden, use_layernorm=use_layernorm,
+                                          generator=generator)
                           for name, spec in COMPLETER_SPECS.items()})

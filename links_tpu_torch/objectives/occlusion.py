@@ -219,19 +219,21 @@ def drop_keypoints(poses_2d: torch.Tensor, joints) -> torch.Tensor:
 
 
 def dropout_eval_poses(completers, lifters: dict, test_2d: torch.Tensor, depth: float = 10.0,
-                       policy: Policy = F32,
-                       choice: str = "right") -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
+                       policy: Policy = F32, choice: str = "right",
+                       scenarios=None) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
     """Lifting under simulated 2D keypoint dropout: for each scenario of
-    ``DROPOUT_SCENARIO_JOINTS`` its keypoints are zeroed, the partial pose is
-    lifted by the lifters that do not read them and the scenario's completer
-    infills the missing 3D part (``occlusion_validation_poses``). -> {scenario:
-    (recovered (B, 51), naive (B, 51))}, ``naive`` being the plain left/right
-    lift of the same corrupted 2D (shared joints from ``choice``): the
-    no-completion baseline."""
+    ``DROPOUT_SCENARIO_JOINTS`` (or each of ``scenarios``) its keypoints are
+    zeroed, the partial pose is lifted by the lifters that do not read them
+    and the scenario's completer infills the missing 3D part
+    (``occlusion_validation_poses``). -> {scenario: (recovered (B, 51),
+    naive (B, 51))}, ``naive`` being the plain left/right lift of the same
+    corrupted 2D (shared joints from ``choice``): the no-completion
+    baseline. A scenario's values do not depend on which others run."""
     stacked = StackedLifter(lifters["left"], lifters["right"])
+    names = tuple(scenarios) if scenarios is not None else tuple(DROPOUT_SCENARIO_JOINTS)
     out = {}
-    for name, joints in DROPOUT_SCENARIO_JOINTS.items():
-        occluded = drop_keypoints(test_2d, joints)
+    for name in names:
+        occluded = drop_keypoints(test_2d, DROPOUT_SCENARIO_JOINTS[name])
         recovered = occlusion_validation_poses(completers, lifters, occluded, depth, policy,
                                                scenarios=(name,))[name]
         out[name] = (recovered, lift_left_right_eval(stacked, occluded, depth, choice, policy))

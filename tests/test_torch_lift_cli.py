@@ -104,7 +104,9 @@ names = [m.name for m in pkgutil.walk_packages(links_tpu_torch.__path__, "links_
 assert {"links_tpu_torch.cli.eval_h36m", "links_tpu_torch.cli.run_pipeline",
         "links_tpu_torch.ckpt.run_io", "links_tpu_torch.cli.export_model",
         "links_tpu_torch.cli.pack_data", "links_tpu_torch.ckpt.export_io",
-        "links_tpu_torch.data.native_loader", "links_tpu_torch.train.feed"} <= set(names)
+        "links_tpu_torch.data.native_loader", "links_tpu_torch.train.feed",
+        "links_tpu_torch.viz", "links_tpu_torch.cli.visualise", "links_tpu_torch.cli.preprocess",
+        "links_tpu_torch.train.profiling"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
