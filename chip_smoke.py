@@ -33,8 +33,16 @@ Phases, each fatal on failure:
      in one process, each rank's K1 calls counted and its parameters
      bitwise rank 0's; the 3a trainer under ``python -m
      torch.distributed.run`` as one NCCL rank against the main path's
-     epoch; ``--num-devices 2`` refused on one card); K1's f32 forward
-     against its plain version at eval's batches;
+     epoch; ``--num-devices 2`` refused on one card); ZeRO (3a on two gloo
+     ranks, the parameters and moments sharded, against the same steps in
+     one process, 28 + 22 K1 calls per step and rank, its shards and pads
+     checked, each rank's peak memory printed), tensor parallelism (3a on
+     (1, 2) and (2, 2) layouts of gloo ranks against one process, no K1
+     call) and the GPipe trunk (8 blocks at hidden 1024 on 4 gloo stages x
+     4 microbatches under both policies against the sequential trunk, K1
+     calls per stage counted exactly), each logging which collectives go
+     through host copies; K1's f32 forward against its plain version at
+     eval's batches;
      ``links_tpu_torch.cli.eval_h36m`` with every occlusion
      evaluation (--occlusion --dropout --from-detections on the detector
      split, f32) and with --mode leg_torso, counting K1's forward calls;
@@ -128,7 +136,7 @@ from links_tpu_torch.config import (
     PartFlowTrainConfig,
 )
 from links_tpu_torch.core.geometry import normalize_head
-from links_tpu_torch.core.nn import BF16, F32, full_f32_matmuls
+from links_tpu_torch.core.nn import BF16, F32, full_f32_matmuls, leaky_relu
 from links_tpu_torch.core.skeleton import split_data_left_right
 from links_tpu_torch.data import native_loader
 from links_tpu_torch.data.synthetic import generate_poses, write_synthetic_pickle
@@ -275,6 +283,20 @@ DP_RANKS = 2
 DP_STEPS = 3
 DP_TIMED_STEPS = 5
 DP_LR_STEPS = 2 * (1 + 2 ** -7)
+# ZeRO, TP and PP (train/parallel.py), each on gloo ranks that share the card
+# and against one process, at full width. ZeRO and TP: the data-parallel
+# phase's 3a steps and bounds, on ZERO_RANKS ranks and on each (n_data,
+# n_model) layout of TP_MESHES. PP: a trunk of PP_DEPTH residual blocks at
+# HIDDEN on PP_STAGES stages, PP_BATCH rows in PP_MICRO microbatches, under
+# both policies: every stage's output within K1_TOL (rtol = atol; K1 on 64-row
+# microbatches against 256 rows) and the gradients with respect to x and the
+# stage's blocks within STEP_GRAD_REL (bf16 rounds each microbatch's weight
+# gradient before the sum over microbatches, the one process the sum once)
+ZERO_RANKS = 2
+TP_MESHES = ((1, 2), (2, 2))
+PP_STAGES = 4
+PP_MICRO = 4
+PP_DEPTH = 8
 # the loss terms of a lifter step
 LIFTER_TERMS = ("likeli", "likeli_left", "likeli_right", "L3d", "rep_rot", "re_rot_3d",
                 "bl_prior", "loss")
@@ -315,6 +337,7 @@ GATHER_ROWS = 1_500_000
 SCALE_POSES = 500_000
 TIMED_BATCHES = (1, 256, 512)
 MAIN_BATCH = 256          # --batch-size of the main paths
+PP_BATCH = MAIN_BATCH
 TEST_POSES = 2048         # synthetic poses per test subject (S9, S11)
 TRAIN_POSES = 2048        # synthetic poses per train subject: 40 steps at 256
 STEP_CHECK_BATCH = 64
@@ -942,29 +965,42 @@ def phase_main_path(stacked, tmp: Path) -> tuple[dict, dict]:
     return counts, summaries
 
 
-def _dp_steps(group: parallel.Group | None) -> dict:
-    """The data-parallel phase's 3a steps on the card (full width, bf16
-    policy, seeded weights, DP_STEPS global batches of MAIN_BATCH and their
-    global draws), in one process (``group`` None) or on this rank of a
-    group: the first step's loss terms and gradients and each step's loss
-    terms (averaged over the ranks), the parameters after the first step
-    and after the last, the largest gap of any parameter from rank 0's, the
-    K1 calls of the steps, and the host ms of a step over DP_TIMED_STEPS
-    more (the card synchronised before and after)."""
+def _dp_inputs(group: parallel.Group | None):
+    """The 3a steps' inputs on the card (full width, bf16 policy, seeded
+    weights, DP_STEPS global batches of MAIN_BATCH and their global draws):
+    (stage, device, this rank's rows of each batch (``group``'s; all of it
+    without one), the draws, the model, the frozen flows)."""
     stage = _stage("3a", seed=3, batch=MAIN_BATCH)
     dev = torch.device("cuda") if group is None else group.device
     g = torch.Generator().manual_seed(13)
     draws = [_to(stage.draw(g, MAIN_BATCH, "cpu"), dev) for _ in range(DP_STEPS)]
     batches = [_synthetic_batch(MAIN_BATCH, seed=4 + i) for i in range(DP_STEPS)]
     batches = [(b if group is None else parallel.rows(b, group)).to(dev) for b in batches]
-    model = parallel.replicate(stage.model.to(dev), group)
-    frozen = LifterFrozen(*(f.to(dev) for f in stage.frozen))
+    return (stage, dev, batches, draws, stage.model.to(dev),
+            LifterFrozen(*(f.to(dev) for f in stage.frozen)))
+
+
+def _mean_aux(aux: dict, group: parallel.Group | None) -> dict:
+    """Loss terms as floats, averaged over ``group``'s ranks."""
+    vals = torch.stack(list(aux.values()))
+    if group is not None:
+        parallel.all_reduce_mean_([vals], group)
+    return dict(zip(aux, vals.tolist()))
+
+
+def _dp_steps(group: parallel.Group | None) -> dict:
+    """The data-parallel phase's 3a steps on the card (``_dp_inputs``), in
+    one process (``group`` None) or on this rank of a group: the first
+    step's loss terms and gradients and each step's loss terms (averaged
+    over the ranks), the parameters after the first step and after the
+    last, the largest gap of any parameter from rank 0's, the K1 calls of
+    the steps, and the host ms of a step over DP_TIMED_STEPS more (the card
+    synchronised before and after)."""
+    stage, dev, batches, draws, model, frozen = _dp_inputs(group)
+    model = parallel.replicate(model, group)
 
     def mean(aux):
-        vals = torch.stack(list(aux.values()))
-        if group is not None:
-            parallel.all_reduce_mean_([vals], group)
-        return dict(zip(aux, vals.tolist()))
+        return _mean_aux(aux, group)
 
     aux, grads = steps.build_left_right_grads(frozen, stage.cfg, None, group)(
         model, batches[0], steps.shard_draws(draws[0], group))
@@ -981,6 +1017,14 @@ def _dp_steps(group: parallel.Group | None) -> dict:
     torch.cuda.synchronize()
     out["counts"] = _counts()
     out["gap"] = 0.0 if group is None else _gap_from_rank0(model)
+    out["ms"] = _step_ms(step, state, batches, draws, group)
+    return out
+
+
+def _step_ms(step, state, batches, draws, group: parallel.Group | None) -> float:
+    """Host ms of one ``step`` over DP_TIMED_STEPS more steps of the checked
+    batches and draws, every rank of ``group`` starting together and the
+    card synchronised before and after."""
     if group is not None:
         parallel.barrier(group)
     torch.cuda.synchronize()
@@ -988,8 +1032,7 @@ def _dp_steps(group: parallel.Group | None) -> dict:
     for i in range(DP_TIMED_STEPS):
         step(state, batches[i % DP_STEPS], draws[i % DP_STEPS])
     torch.cuda.synchronize()
-    out["ms"] = (time.perf_counter() - t0) * 1e3 / DP_TIMED_STEPS
-    return out
+    return (time.perf_counter() - t0) * 1e3 / DP_TIMED_STEPS
 
 
 @torch.no_grad()
@@ -1044,7 +1087,7 @@ def phase_data_parallel(data: Path, models: Path, tmp: Path, main_3a: dict) -> d
     counts by path."""
     smi = _smi()
     lr = LifterTrainConfig().optim.learning_rate
-    one = _dp_steps(None)
+    one = _one_process_3a()
     t0 = time.perf_counter()
     parallel.spawn(_dp_rank, (str(tmp / "dp_rank{rank}.pt"),), ["cuda:0"] * DP_RANKS,
                    backend="gloo")
@@ -1120,6 +1163,297 @@ def phase_data_parallel(data: Path, models: Path, tmp: Path, main_3a: dict) -> d
     if not refusal.startswith(f"--num-devices 2: {torch.cuda.device_count()} CUDA device"):
         raise AssertionError(f"--num-devices 2 refused without naming the count: {refusal}")
     _log(f"[dp] --device cuda --num-devices 2 on this machine: refused ({refusal})")
+    return counts
+
+
+@functools.cache
+def _one_process_3a() -> dict:
+    """``_dp_steps`` in this process (once): what the data-parallel, ZeRO and
+    TP ranks are held against."""
+    return _dp_steps(None)
+
+
+def _staging(group: parallel.Group) -> str:
+    """Which collectives of ZeRO, TP and PP go through the host on this
+    group's backend and device (``parallel.host_staged``)."""
+    ops = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor", "batch_isend_irecv")
+    staged = [op for op in ops if parallel.host_staged(op, group.device, group.pg)]
+    return (f"{torch.distributed.get_backend(group.pg)} on {group.device}: "
+            + (", ".join(staged) + " through host copies" if staged else "no host copies")
+            + ", " + ", ".join(op for op in ops if op not in staged) + " on the card")
+
+
+def _zero_rank(out: str, group: parallel.Group):
+    """A spawned rank of the ZeRO phase: DP_STEPS 3a steps of
+    ``dp_zero_step`` on ``_dp_inputs`` (the first step's gradient as the DP
+    ranks compute it), then DP_TIMED_STEPS more, into ``out``: the loss
+    terms, the gathered parameters after the first and the last step, the
+    K1 calls, this rank's shard and pad, its peak of allocated memory from
+    the ZeRO state's creation on, and the host ms per step."""
+    full_f32_matmuls()
+    stage, dev, batches, draws, model, frozen = _dp_inputs(group)
+    grads_fn = steps.build_left_right_grads(frozen, stage.cfg, None, group)
+    aux, grads = grads_fn(model, batches[0], steps.shard_draws(draws[0], group))
+    parallel.all_reduce_mean_(grads, group)
+    res = {"aux": _mean_aux(aux, group), "grads": [t.cpu() for t in grads], "losses": [],
+           "params": [], "staging": _staging(group)}
+    del aux, grads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = parallel.init_zero_state(model, stage.cfg.optim, group, 40)
+    step = parallel.dp_zero_step(grads_fn, model, group)
+    _reset_counts()
+    for i, (batch, draw) in enumerate(zip(batches, draws)):
+        res["losses"].append(_mean_aux(step(state, batch, draw), group))
+        if i in (0, DP_STEPS - 1):
+            res["params"].append([t.cpu() for t in
+                                  parallel.zero_gather(state, model, group)["params"]])
+    torch.cuda.synchronize()
+    res["counts"] = _counts()
+    res["peak"] = torch.cuda.max_memory_allocated(dev)
+    res.update(shard=state.flat_params.cpu(), pad=state.pad, padded=state.padded,
+               moments=(state.opt.mu[0].numel(), state.opt.mu[0].dtype))
+    res["ms"] = _step_ms(step, state, batches, draws, group)
+    torch.save(res, out.format(rank=group.rank))
+
+
+def phase_zero(tmp: Path) -> dict:
+    """ZeRO on the card: 3a at full width on ZERO_RANKS gloo ranks sharing
+    cuda:0, DP_STEPS steps of the global batch MAIN_BATCH, against the same
+    steps in one process (``_check_step_bounds``); exactly K1_FWD_PER_STEP +
+    K1_BWD_PER_STEP K1 calls per step on every rank; each rank holding
+    padded / W elements of the flat vector and of both moments; the padded
+    lanes 0. -> counts by path."""
+    smi = _smi()
+    lr = LifterTrainConfig().optim.learning_rate
+    one = _one_process_3a()
+    t0 = time.perf_counter()
+    parallel.spawn(_zero_rank, (str(tmp / "zero_rank{rank}.pt"),), ["cuda:0"] * ZERO_RANKS,
+                   backend="gloo")
+    SECONDS["zero: 2 gloo ranks"] = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"zero_rank{r}.pt", weights_only=False) for r in range(ZERO_RANKS)]
+    per_step = {"res_block_forward": K1_FWD_PER_STEP, "res_block_backward": K1_BWD_PER_STEP,
+                "fused_sides_forward": 0}
+    want = {k: DP_STEPS * v for k, v in per_step.items()}
+    size = sum(p.numel() for p in _stage("3a", seed=3, batch=MAIN_BATCH).model.parameters())
+    flat = torch.cat([got["shard"] for got in ranks])
+    _log(f"[zero] collectives: {ranks[0]['staging']}")
+    for r, got in enumerate(ranks):
+        if got["counts"] != want:
+            raise AssertionError(f"ZeRO rank {r}: K1 calls in {DP_STEPS} 3a steps "
+                                 f"{got['counts']}, expected {want}")
+        n = got["padded"] // ZERO_RANKS
+        if got["shard"].numel() != n or got["moments"][0] != n or got["padded"] - size != got["pad"]:
+            raise AssertionError(f"ZeRO rank {r}: shard {got['shard'].numel()}, moments "
+                                 f"{got['moments']}, pad {got['pad']}; expected {n} of "
+                                 f"{size} parameters")
+        report = _check_step_bounds(f"ZeRO rank {r}", got, one, lr)
+        _log(f"[zero] 3a at hidden {HIDDEN}, global batch {MAIN_BATCH}, {ZERO_RANKS} gloo ranks "
+             f"on cuda:0, rank {r} against one process: {report}; K1 calls per step "
+             f"{got['counts']['res_block_forward'] // DP_STEPS} forward + "
+             f"{got['counts']['res_block_backward'] // DP_STEPS} backward; shard {n:,} of "
+             f"{got['padded']:,} f32 ({size:,} parameters, {size * 4 / 1e6:.1f} MB; pad "
+             f"{got['pad']}), moments {got['moments'][0]:,} x 2 {got['moments'][1]}; peak "
+             f"allocated from the ZeRO state on {got['peak'] / 2 ** 20:.1f} MiB "
+             f"(torch.cuda.max_memory_allocated)")
+    if not torch.equal(flat[size:], torch.zeros(flat.numel() - size)):
+        raise AssertionError(f"ZeRO padded lanes moved: {flat[size:].tolist()}")
+    _log(f"[time] 3a ZeRO step at global batch {MAIN_BATCH}, host ms over {DP_TIMED_STEPS} steps: "
+         f"one process {one['ms']:.4f}; " + ", ".join(f"rank {r} {got['ms']:.4f}" for r, got
+                                                       in enumerate(ranks))
+         + f" ({ZERO_RANKS} gloo ranks sharing the card: no scaling is claimed) on {smi}")
+    return {f"zero: 3a steps, {ZERO_RANKS} gloo ranks": {
+        k: sum(got["counts"][k] for got in ranks) for k in want}}
+
+
+def _tp_rank(mesh: tuple, out: str, group: parallel.Group):
+    """A spawned rank of the TP phase on an (n_data, n_model) = ``mesh``
+    layout: DP_STEPS 3a steps of ``dp_tp_step`` on ``_dp_inputs`` (this
+    rank's rows over 'data') with the model split over 'model', into
+    ``out``: the loss terms (averaged over 'data'), the first step's
+    gradient and the parameters after the first and the last step, gathered
+    over 'model', the K1 calls, and the host ms per step."""
+    full_f32_matmuls()
+    layout = parallel.make_mesh_2d(*mesh, group)
+    data, model_axis = layout["data"], layout["model"]
+    stage, dev, batches, draws, model, frozen = _dp_inputs(data)
+    model = parallel.tp_shard_(model, layout)
+    specs = list(parallel.tp_param_specs(model).values())
+    grads_fn = steps.build_left_right_grads(frozen, stage.cfg, None, data)
+    _reset_counts()
+    aux, grads = grads_fn(model, batches[0], steps.shard_draws(draws[0], data))
+    parallel.all_reduce_mean_(grads, data)
+    res = {"aux": _mean_aux(aux, data), "losses": [], "params": [], "staging": _staging(data),
+           "grads": [t.cpu() for t in parallel.tp_gather(grads, specs, model_axis)],
+           "l1": tuple(model.left.res_common.l1.weight.shape)}
+    state = steps.TrainState(model, Adam(model.parameters(), stage.cfg.optim, 40))
+    step = parallel.dp_tp_step(grads_fn, model, layout)
+    for i, (batch, draw) in enumerate(zip(batches, draws)):
+        res["losses"].append(_mean_aux(step(state, batch, draw), data))
+        if i in (0, DP_STEPS - 1):
+            res["params"].append([t.cpu() for t in
+                                  parallel.tp_gather(model.parameters(), specs, model_axis)])
+    torch.cuda.synchronize()
+    res["counts"] = _counts()
+    res["ms"] = _step_ms(step, state, batches, draws, group)
+    torch.save(res, out.format(rank=group.rank))
+
+
+def phase_tp(tmp: Path) -> dict:
+    """Tensor parallelism on the card: 3a at full width on (1, 2) and (2, 2)
+    layouts of gloo ranks sharing cuda:0, DP_STEPS steps of the global batch
+    MAIN_BATCH, every rank against the same steps in one process
+    (``_check_step_bounds``, the gathered gradient and parameters); no K1
+    call (the split block composes its products); l1 split in half on its
+    rows. -> counts by path."""
+    smi = _smi()
+    lr = LifterTrainConfig().optim.learning_rate
+    one = _one_process_3a()
+    counts = {}
+    zero = {"res_block_forward": 0, "res_block_backward": 0, "fused_sides_forward": 0}
+    for mesh in TP_MESHES:
+        world = mesh[0] * mesh[1]
+        t0 = time.perf_counter()
+        parallel.spawn(_tp_rank, (mesh, str(tmp / "tp_rank{rank}.pt")), ["cuda:0"] * world,
+                       backend="gloo")
+        SECONDS[f"tp: {mesh}"] = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"tp_rank{r}.pt", weights_only=False) for r in range(world)]
+        _log(f"[tp] {mesh} collectives: {ranks[0]['staging']}")
+        for r, got in enumerate(ranks):
+            if got["counts"] != zero:
+                raise AssertionError(f"TP {mesh} rank {r}: K1 calls {got['counts']}, expected "
+                                     f"none")
+            if got["l1"] != (HIDDEN // mesh[1], HIDDEN):
+                raise AssertionError(f"TP {mesh} rank {r}: l1 holds {got['l1']}")
+            report = _check_step_bounds(f"TP {mesh} rank {r}", got, one, lr)
+            _log(f"[tp] 3a at hidden {HIDDEN}, global batch {MAIN_BATCH}, (data, model) = "
+                 f"{mesh} of gloo ranks on cuda:0, rank {r} against one process: {report}; "
+                 f"K1 calls 0; l1 holds {got['l1']}")
+        _log(f"[time] 3a TP step {mesh} at global batch {MAIN_BATCH}, host ms over "
+             f"{DP_TIMED_STEPS} steps: one process {one['ms']:.4f}; "
+             + ", ".join(f"rank {r} {got['ms']:.4f}" for r, got in enumerate(ranks))
+             + f" (gloo ranks sharing the card: no scaling is claimed) on {smi}")
+        counts[f"tp: 3a steps, {mesh}"] = {k: sum(got["counts"][k] for got in ranks)
+                                           for k in zero}
+    return counts
+
+
+def _pp_inputs():
+    """The trunk phase's seeded trunk (PP_DEPTH blocks at hidden HIDDEN), its
+    input and target (PP_BATCH rows), on the CPU."""
+    g = torch.Generator().manual_seed(17)
+    blocks = parallel.stack_blocks([ResBlock(HIDDEN, generator=g) for _ in range(PP_DEPTH)])
+    return blocks, torch.randn(PP_BATCH, HIDDEN, generator=g), \
+        torch.randn(PP_BATCH, HIDDEN, generator=g)
+
+
+def _trunk_grads(run, blocks, params, x, target, policy) -> dict:
+    """``run(blocks, x, policy)``, the gradients of the mean squared distance
+    to ``target`` with respect to x and ``params``, the K1 calls, and the
+    host ms of the whole over 3 more runs (the card synchronised around)."""
+    def once():
+        xg = x.clone().requires_grad_(True)
+        y = run(blocks, xg, policy)
+        return y, torch.autograd.grad(((y - target) ** 2).mean(), [xg, *params])
+
+    _reset_counts()
+    y, (gx, *grads) = once()
+    torch.cuda.synchronize()
+    res = {"out": y.detach().cpu(), "gx": gx.cpu(), "grads": [t.cpu() for t in grads],
+           "counts": _counts()}
+    t0 = time.perf_counter()
+    for _ in range(3):
+        once()
+    torch.cuda.synchronize()
+    res["ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    return res
+
+
+def _pp_rank(out: str, group: parallel.Group):
+    """A spawned stage of the trunk phase: ``pp_trunk_apply`` of the seeded
+    trunk with PP_MICRO microbatches under each policy, this stage's blocks
+    on the card and the others on the meta device, into ``out``."""
+    full_f32_matmuls()
+    layout = parallel.make_mesh_pipe(PP_STAGES, group)
+    blocks, x, target = _pp_inputs()
+    held = parallel.pp_trunk_sharding(layout, blocks)
+    for i, block in enumerate(blocks):
+        block.to(group.device if i in held else "meta")
+    params = [p for i in held for p in blocks[i].parameters()]
+    res = {"held": list(held), "staging": _staging(group)}
+    for name, policy in (("f32", F32), ("bf16", BF16)):
+        res[name] = _trunk_grads(
+            lambda b, v, pol: parallel.pp_trunk_apply(b, v, layout, PP_MICRO, pol), blocks,
+            params, x.to(group.device), target.to(group.device), policy)
+    torch.save(res, out.format(rank=group.rank))
+
+
+def _sequential_trunk(blocks, x, policy):
+    for block in blocks:
+        x = leaky_relu(block(x, policy))
+    return x
+
+
+def phase_pp(tmp: Path) -> dict:
+    """The GPipe trunk on the card: PP_DEPTH residual blocks at hidden
+    HIDDEN on PP_STAGES gloo ranks sharing cuda:0, PP_BATCH rows in PP_MICRO
+    microbatches, under both policies, against the sequential trunk in one
+    process (PP_DEPTH forward and PP_DEPTH backward K1 calls): every stage's
+    output within K1_TOL, the gradients with respect to x and each stage's
+    blocks within STEP_GRAD_REL; K1 calls per stage exactly PP_MICRO x
+    PP_DEPTH / PP_STAGES forward and as many backward (bubble ticks only
+    exchange). -> counts by path."""
+    smi = _smi()
+    blocks, x, target = _pp_inputs()
+    blocks.cuda()
+    one = {name: _trunk_grads(_sequential_trunk, blocks, list(blocks.parameters()), x.cuda(),
+                              target.cuda(), policy) for name, policy in (("f32", F32),
+                                                                          ("bf16", BF16))}
+    t0 = time.perf_counter()
+    parallel.spawn(_pp_rank, (str(tmp / "pp_rank{rank}.pt"),), ["cuda:0"] * PP_STAGES,
+                   backend="gloo")
+    SECONDS["pp: 4 gloo stages"] = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"pp_rank{r}.pt", weights_only=False) for r in range(PP_STAGES)]
+    _log(f"[pp] collectives: {ranks[0]['staging']}")
+    per = PP_DEPTH // PP_STAGES
+    counts = {}
+    for name in ("f32", "bf16"):
+        want_one = {"res_block_forward": PP_DEPTH, "res_block_backward": PP_DEPTH,
+                    "fused_sides_forward": 0}
+        want = {"res_block_forward": PP_MICRO * per, "res_block_backward": PP_MICRO * per,
+                "fused_sides_forward": 0}
+        if one[name]["counts"] != want_one:
+            raise AssertionError(f"sequential trunk {name}: K1 calls {one[name]['counts']}, "
+                                 f"expected {want_one}")
+        ref = one[name]
+        for r, got in enumerate(ranks):
+            res = got[name]
+            if res["counts"] != want:
+                raise AssertionError(f"trunk stage {r} {name}: K1 calls {res['counts']}, "
+                                     f"expected {want}")
+            if not torch.allclose(res["out"], ref["out"], rtol=K1_TOL, atol=K1_TOL):
+                raise AssertionError(f"trunk stage {r} {name}: output off by "
+                                     f"{float((res['out'] - ref['out']).abs().max()):.3e}")
+            mine = [p for i in got["held"] for p in range(4 * i, 4 * i + 4)]
+            rel = [float((a - b).norm() / b.norm().clamp_min(1e-12)) for a, b in
+                   zip([res["gx"], *res["grads"]], [ref["gx"], *(ref["grads"][j] for j in mine)])]
+            if max(rel) > STEP_GRAD_REL:
+                raise AssertionError(f"trunk stage {r} {name}: gradients rel L2 {max(rel):.3e}")
+            _log(f"[pp] {PP_DEPTH}-block trunk at hidden {HIDDEN}, B = {PP_BATCH}, "
+                 f"{PP_STAGES} gloo stages on cuda:0 x {PP_MICRO} microbatches, {name}, stage "
+                 f"{r} (blocks {got['held']}) against one process: output within "
+                 f"{float((res['out'] - ref['out']).abs().max()):.3e} (bound rtol = atol "
+                 f"{K1_TOL}), gradients (x and its {len(got['held'])} blocks) rel L2 "
+                 f"{max(rel):.3e} (bound {STEP_GRAD_REL}); K1 calls "
+                 f"{res['counts']['res_block_forward']} forward + "
+                 f"{res['counts']['res_block_backward']} backward on {PP_BATCH // PP_MICRO} "
+                 f"rows (one process: {PP_DEPTH} + {PP_DEPTH} on {PP_BATCH})")
+        _log(f"[time] trunk forward and backward, {name}, host ms over 3 runs: one process "
+             f"{ref['ms']:.4f}; " + ", ".join(f"stage {r} {got[name]['ms']:.4f}"
+                                               for r, got in enumerate(ranks))
+             + f" ({PP_STAGES} gloo stages sharing the card: no scaling is claimed) on {smi}")
+        counts[f"pp: trunk, {PP_STAGES} stages x {PP_MICRO} microbatches, {name}"] = {
+            k: sum(got[name]["counts"][k] for got in ranks) for k in want}
     return counts
 
 
@@ -2402,6 +2736,9 @@ def main() -> int:
         data, models = tmp / "synthetic.pkl", tmp / "models"
         counts.update(_timed("data parallel", phase_data_parallel, data, models, tmp,
                              summaries["3a"]))
+        counts.update(_timed("zero", phase_zero, tmp))
+        counts.update(_timed("tp", phase_tp, tmp))
+        counts.update(_timed("pp", phase_pp, tmp))
         _, _, composed = _timed("K1 at the eval batches", phase_k1_eval_batches, data, models)
         counts.update(_timed("eval", phase_eval, data, models, composed))
         _timed("eval card vs CPU", phase_eval_card_vs_cpu, data, models)

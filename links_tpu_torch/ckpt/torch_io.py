@@ -15,7 +15,9 @@ by its ``qkv`` key, as the JAX package's ``lifter_apply`` dispatches on the
 ``qkv`` leaf. Flows use FrEIA's ``SequenceINN`` layout
 (flows/coupling.py). Orbax artifacts need jax and are not read here; the JAX
 trainers write ``.pt`` files with ``--save-pt``. Every file is written
-atomically (``atomic_save``).
+atomically (``atomic_save``). ``zero_state_from_jax`` and ``trunk_from_jax``
+carry the JAX package's ZeRO state and stacked residual trunk
+(links_tpu/train/parallel.py) across, from the objects themselves.
 """
 
 from __future__ import annotations
@@ -33,8 +35,11 @@ from links_tpu_torch.models.completers import BLOCKS, Completer
 from links_tpu_torch.models.lifters import (
     CHAIN,
     DISCRIMINATOR_BLOCKS,
+    LegTorsoLifter,
     Lifter,
     PoseDiscriminator,
+    ResBlock,
+    StackedLifter,
 )
 
 
@@ -260,3 +265,60 @@ def load_flow_pt(path, device="cpu") -> Flow:
 def save_flow_pt(flow: Flow, path) -> None:
     """Write ``flow`` as a FrEIA-layout ``.pt``."""
     atomic_save({k: v.detach().cpu().clone() for k, v in flow.state_dict().items()}, path)
+
+
+def _index(tree, i: int):
+    """Leaf ``[i]`` of every array of a nested dict (one of a stack)."""
+    return {k: _index(v, i) if isinstance(v, dict) else np.asarray(v)[i] for k, v in tree.items()}
+
+
+def _params_of(model, tree) -> list[torch.Tensor]:
+    """A links_tpu lifter pytree of ``model`` (a ``StackedLifter``: leaves
+    stacked (left, right); a ``LegTorsoLifter``: ``{"legs", "torso"}``; a
+    ``Lifter``) -> its tensors in ``model.parameters()`` order, as
+    ``lifter_params_from_jax`` converts them."""
+    if isinstance(model, StackedLifter):
+        parts = {"left": _index(tree, 0), "right": _index(tree, 1)}
+    elif isinstance(model, LegTorsoLifter):
+        parts = {"legs": tree["legs"], "torso": tree["torso"]}
+    elif isinstance(model, Lifter):
+        parts = {"": tree}
+    else:
+        raise ValueError(f"no links_tpu layout for a {type(model).__name__}")
+    sd = {(f"{name}." if name else "") + k: v for name, part in parts.items()
+          for k, v in lifter_params_from_jax(part).items()}
+    return [sd[name].reshape(p.shape) for name, p in model.named_parameters()]
+
+
+def zero_state_from_jax(z_state, unravel, model) -> dict:
+    """A links_tpu ``ZeroState`` and the ``unravel`` of its
+    ``init_zero_state`` -> the port's ZeRO state of ``model`` (a
+    ``StackedLifter``, ``LegTorsoLifter`` or ``Lifter``), unflattened:
+    ``{"params", "mu", "nu"}`` lists of f32 tensors in ``model.parameters()``
+    order, ``"count"`` (Adam's updates) and ``"step"``, the form
+    ``parallel.zero_gather`` returns and ``parallel.init_zero_state`` takes.
+    JAX's flat vector follows ``ravel_pytree``'s sorted-key order in the
+    (in, out) layout, so each vector is unravelled there (pads dropped) and
+    converted tensor by tensor; never compare the two flat vectors."""
+    size = sum(p.numel() for p in model.parameters())
+    adam = next(s for s in z_state.opt_state if hasattr(s, "mu") and hasattr(s, "nu"))
+    out = {"count": int(np.asarray(adam.count)), "step": int(np.asarray(z_state.step))}
+    for key, flat in (("params", z_state.flat_params), ("mu", adam.mu), ("nu", adam.nu)):
+        out[key] = _params_of(model, unravel(np.asarray(flat, np.float32)[:size]))
+    return out
+
+
+def trunk_from_jax(stacked) -> torch.nn.ModuleList:
+    """A links_tpu ``stack_blocks`` trunk as numpy (each leaf with a leading
+    depth axis; LayerNorms as ``ln1``/``ln2``) -> the port's depth-D
+    ``ModuleList`` of ``ResBlock``s (``parallel.stack_blocks``'s layout)."""
+    depth, hidden, _ = np.asarray(stacked["l1"]["w"]).shape
+    blocks = []
+    for i in range(depth):
+        sd = {k.split(".", 1)[1]: v for k, v in _params_from_jax(
+            {"blk": _index(stacked, i)}, (), ("blk",)).items()}
+        with torch.device("meta"):
+            block = ResBlock(hidden, use_layernorm="ln1" in stacked)
+        block.load_state_dict(sd, strict=True, assign=True)
+        blocks.append(block)
+    return torch.nn.ModuleList(blocks)

@@ -33,14 +33,16 @@ F32 = Policy()
 BF16 = Policy(compute_dtype=torch.bfloat16)
 
 
-def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
           policy: Policy = F32) -> torch.Tensor:
-    """y = x @ weight^T + bias, weight in torch's (out, in) layout (batched
-    weights broadcast over leading dims), under the dtype policy."""
+    """y = x @ weight^T + bias (no bias: None), weight in torch's (out, in)
+    layout (batched weights broadcast over leading dims), under the dtype
+    policy."""
     if policy.compute_dtype != torch.float32:
         x = x.to(policy.compute_dtype).float()
         weight = weight.to(policy.compute_dtype).float()
-    return torch.matmul(x, weight.mT) + bias
+    y = torch.matmul(x, weight.mT)
+    return y if bias is None else y + bias
 
 
 # Activation ranges for static int8 calibration (ops/quant.py:
@@ -74,7 +76,13 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
 
 class Linear(nn.Module):
     """A linear layer with the reference's state-dict keys (``weight`` in
-    (out, in) layout, ``bias``) whose forward follows a dtype ``Policy``."""
+    (out, in) layout, ``bias``) whose forward follows a dtype ``Policy``.
+
+    Split over a 'model' axis (``train.parallel.tp_shard_`` sets ``tp``), it
+    holds its part of the weight and takes the tensor-parallel route: a
+    column split (fan_out) gathers its output's features from every rank, a
+    row split (fan_in) multiplies its slice of the input's features and sums
+    the products over the ranks before its replicated bias."""
 
     def __init__(self, fan_in: int, fan_out: int, *,
                  generator: torch.Generator | None = None):
@@ -84,15 +92,29 @@ class Linear(nn.Module):
             torch.empty(fan_out, fan_in).uniform_(-bound, bound, generator=generator))
         self.bias = nn.Parameter(
             torch.empty(fan_out).uniform_(-bound, bound, generator=generator))
+        self.tp = None  # a train.parallel.TPRole once split
 
     def forward(self, x: torch.Tensor, policy: Policy = F32) -> torch.Tensor:
         if _CALIB is not None:
             _CALIB[id(self)] = max(_CALIB.get(id(self), 0.0), float(x.abs().max()))
-        return dense(x, self.weight, self.bias, policy)
+        if self.tp is None:
+            return dense(x, self.weight, self.bias, policy)
+        from links_tpu_torch.train import parallel  # it imports this module
+
+        group = self.tp.group
+        x = parallel.copy_to_model(x, group)
+        if self.tp.kind == "column":
+            return parallel.gather_from_model(dense(x, self.weight, self.bias, policy), group)
+        n = self.weight.shape[1]
+        part = dense(x[..., group.rank * n:(group.rank + 1) * n], self.weight, None, policy)
+        return parallel.reduce_from_model(part, group) + self.bias
+
+
+LN_EPS = 1e-5
 
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              eps: float = 1e-5) -> torch.Tensor:
+              eps: float = LN_EPS) -> torch.Tensor:
     """LayerNorm over the last axis (biased variance), as the JAX package's
     ``layernorm``, op for op."""
     mean = x.mean(-1, keepdim=True)
@@ -102,15 +124,29 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 class LayerNorm(nn.Module):
     """``layernorm`` with the reference's ``nn.LayerNorm`` state-dict keys
-    (``weight``, ``bias``), at torch's defaults (ones, zeros)."""
+    (``weight``, ``bias``), at torch's defaults (ones, zeros).
+
+    Split over a 'model' axis on its features (``tp``, set by
+    ``train.parallel.tp_shard_``), it normalizes a column split's output: the
+    mean and the biased variance of the whole feature axis come from a sum
+    and then a sum of squared deviations, each all-reduced over the ranks."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
+        self.tp = None  # a train.parallel.TPRole once split
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm(x, self.weight, self.bias)
+        if self.tp is None:
+            return layernorm(x, self.weight, self.bias)
+        from links_tpu_torch.train import parallel  # it imports this module
+
+        group = self.tp.group
+        n = x.shape[-1] * group.world
+        mean = parallel.all_reduce_sum(x.sum(-1, keepdim=True), group) / n
+        var = parallel.all_reduce_sum(((x - mean) ** 2).sum(-1, keepdim=True), group) / n
+        return (x - mean) * torch.rsqrt(var + LN_EPS) * self.weight + self.bias
 
 
 def dropout(x: torch.Tensor, rate: float, keep: torch.Tensor | None = None,

@@ -23,12 +23,14 @@ from links_tpu_torch.core.nn import (
     LayerNorm,
     Linear,
     Policy,
+    dense,
     dropout,
     leaky_relu,
     recording,
 )
 from links_tpu_torch.ops.quant import QuantLinear
 from links_tpu_torch.ops.resblock import res_block
+from links_tpu_torch.train import parallel
 
 HIDDEN = 1024
 LEG_JOINTS = 7
@@ -51,7 +53,11 @@ class ResBlock(nn.Module):
     composes plain torch ops, as the JAX package's ``res_block_apply`` does.
     Quantized (ops/quant.py), the block composes its two int8 linears and
     calls no kernel; during static calibration it composes its float
-    linears, so that each records its input."""
+    linears, so that each records its input. Split over a 'model' axis
+    (``train.parallel.tp_shard_``: l1 on fan_out, l2 on fan_in, bn1 on
+    features) it takes the tensor-parallel route, which calls no kernel
+    either: K1 computes the whole block, and the split sums the l2 product
+    over the ranks between its two linears."""
 
     def __init__(self, hidden: int, *, use_layernorm: bool = False, dropout_rate: float = 0.0,
                  generator: torch.Generator | None = None):
@@ -71,6 +77,10 @@ class ResBlock(nn.Module):
         default), the two keep-masks (bool, x's shape) of the two dropouts,
         or a generator to draw them from."""
         drop = bool(self.dropout_rate) and dropout_masks is not None
+        if getattr(self.l1, "tp", None) is not None:
+            if drop:
+                raise ValueError("a residual block split over 'model' takes no dropout")
+            return self._tensor_parallel(x, policy)
         if not (self.use_layernorm or drop or isinstance(self.l1, QuantLinear) or recording()):
             return res_block(x, self.l1.weight, self.l1.bias, self.l2.weight, self.l2.bias,
                              policy)
@@ -86,6 +96,20 @@ class ResBlock(nn.Module):
             if drop:
                 h = dropout(h, self.dropout_rate, keep, gen)
         return h + x
+
+    def _tensor_parallel(self, x: torch.Tensor, policy: Policy) -> torch.Tensor:
+        """The block on this rank's features of l1's output: the gradient of
+        x through that branch sums over the ranks (never the residual's),
+        and the l2 products sum before b2, bn2, LeakyReLU and the residual."""
+        group = self.l1.tp.group
+        h = dense(parallel.copy_to_model(x, group), self.l1.weight, self.l1.bias, policy)
+        if self.use_layernorm:
+            h = self.bn1(h)
+        a = parallel.reduce_from_model(dense(leaky_relu(h), self.l2.weight, None, policy), group)
+        a = a + self.l2.bias
+        if self.use_layernorm:
+            a = self.bn2(a)
+        return leaky_relu(a) + x
 
 
 class Lifter(nn.Module):

@@ -107,7 +107,7 @@ def _global_stats(props: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tenso
     """The mean and ddof=1 std of ``props`` over every rank's rows, from one
     differentiable all-reduce of the sums of x and x^2."""
     n = props.numel() * group.world
-    s1, s2 = all_reduce_sum(torch.stack([props.sum(), (props ** 2).sum()])) / n
+    s1, s2 = all_reduce_sum(torch.stack([props.sum(), (props ** 2).sum()]), group) / n
     var = (s2 - s1 ** 2) * (n / (n - 1))
     return s1, torch.sqrt(torch.clamp(var, min=0.0))
 

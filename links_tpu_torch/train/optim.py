@@ -45,12 +45,16 @@ class Adam:
         return float(np.float32(self.cfg.learning_rate) * np.float32(self.cfg.lr_gamma) ** p)
 
     @torch.no_grad()
-    def step(self, grads) -> None:
-        """Apply one update from ``grads`` (one per parameter, f32)."""
+    def step(self, grads, norm: torch.Tensor | None = None) -> None:
+        """Apply one update from ``grads`` (one per parameter, f32). The clip
+        reads ``norm``, the global norm of the gradient that ``grads`` are a
+        shard of (ZeRO, tensor parallelism: train/parallel.py), or by
+        default their own."""
         cfg = self.cfg
         grads = list(grads)
         if cfg.clip_grad_norm:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if norm is None:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             if not float(norm) < cfg.clip_grad_norm:
                 grads = torch._foreach_mul(torch._foreach_div(grads, norm), cfg.clip_grad_norm)
         if cfg.weight_decay:
