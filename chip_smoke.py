@@ -13,7 +13,10 @@ Phases, each fatal on failure:
      each side of it, the residual-block kernels (K1 forward and backward)
      at the training, serving and validation batches under both dtype
      policies, all bitwise repeatable, with K1's split kernel (bitwise) and
-     its weight-plane cache;
+     its weight-plane cache; K1's f32 forward (three TF32 passes) within
+     K1_F32_TOL of its plain version, beyond which a one-pass control lies,
+     its small planes bitwise the plain split, and the one-pass tf32 product
+     of raw f32 operands bitwise that of their big terms;
   3. one training step of each stage (1, 2, 3a, 3b, 4) on the card against
      the same step on the CPU (full-width lifters, completers and 8-block
      flows at hidden 1024, batch 64, the same weights and draws), counting
@@ -172,15 +175,19 @@ from links_tpu_torch.train.optim import Adam
 # rounding of the next layer's input, and 16 layers carry such flips to the
 # heads. Observed on an H100: at most 3.4e-4 on outputs of ~0.2.
 TOL = 1e-3
-# K1 vs plain version. Forward outputs: rtol = atol (sums in another order;
-# f32 operands enter as three bf16 terms; under bf16 a flipped rounding of h
-# moves a2 by ~1e-4). bf16-policy dx, dW1, dW2 are rounded to bf16 after
-# their sum, so a flip there is one bf16 unit in the last place: at most
-# 2**-7 of the largest value. The other gradients (bf16 db1, db2, which sum
+# K1 vs plain version. bf16-policy forward outputs: rtol = atol (sums in
+# another order; a flipped rounding of h moves a2 by ~1e-4). The f32 forward's
+# outputs y, a1, h, a2: within K1_F32_TOL of each one's largest value (three
+# TF32 passes hold a product to ~22 significant bits; one pass, 11-bit
+# operands, is off by ~1e-3 of the largest value, and each run checks that
+# a one-pass control computed in PyTorch exceeds the bound). bf16-policy dx,
+# dW1, dW2 are rounded to bf16 after their sum, so a flip there is one bf16
+# unit in the last place: at most 2**-7 of the largest value. The other gradients (bf16 db1, db2, which sum
 # flipped terms over the batch, and every f32-policy gradient, whose sums
 # over up to 4096 rows carry an error of the size of the partial sums, not
 # of the element): 1e-3 of the largest value.
 K1_TOL = 1e-3
+K1_F32_TOL = 1e-5
 K1_BF16_ULP = 2.0 ** -7
 # The ulp bound alone would pass a backward that rounds its f32 gradient
 # operands g1, g2 to one bf16 term (the Pallas kernel's numerics), since that
@@ -344,16 +351,17 @@ STEP_CHECK_BATCH = 64
 HIDDEN = 1024
 FLOW_HIDDEN = 1024        # the flow trainers' default width
 FLOW_BLOCKS = 8
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s and
-# f32 FLOP/s outside the tensor cores (the f32 policy: TF32 off).
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 and TF32
+# FLOP/s, and f32 FLOP/s outside the tensor cores (the f32 policy: TF32 off).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 494.7e12
 F32_FLOPS = 67e12
-# K1's f32 policy multiplies on the tensor cores all the same: each f32
-# operand is three bf16 terms and a product sums the 6 term products
-# i + j < 3 (ops/csrc/resblock.cu), so its own method's peak is the bf16
-# peak over 6. Its share of the F32_FLOPS bound is not a roofline share.
-K1_F32_METHOD_FLOPS = BF16_FLOPS / 6
+# K1's f32 forward multiplies on the tensor cores all the same: three TF32
+# passes per f32 product (big.big, small.big, big.small; ops/csrc/resblock.cu),
+# so its own method's peak is the TF32 peak over 3 (164.9 TFLOP/s). Its share
+# of the F32_FLOPS bound is not a roofline share.
+K1_F32_METHOD_FLOPS = TF32_FLOPS / 3
 
 
 def _log(msg):
@@ -490,6 +498,16 @@ def phase_build():
              f"{p.grid} blocks of {sms} SMs (2 sides x {p.row_tiles} x {p.col_tiles}), A box "
              f"{p.a_rows} rows, ring slots of {p.chunk} K tiles: {p.a_chunks} for A, "
              f"{p.w_chunks} for the weights; {p.smem} bytes of shared memory")
+    for batch in K1_BATCHES + (VIZ_FRAMES,):
+        p = K1.f32_plan(batch, HIDDEN, sms)
+        smem = K1._lib().res_block_f32_smem_bytes(p.wg, p.cols, p.a_rows, p.chunk, p.stages)
+        if smem != p.smem:
+            raise AssertionError(f"K1's f32 plan at B={batch} gives {p.smem} bytes of shared "
+                                 f"memory, the kernel {smem}")
+        _log(f"[build] res_block_forward f32 plan B={batch}: tiles {p.rows} x {p.cols} "
+             f"({p.wg} x {p.kw} consumer warpgroups: rows x K), grid {p.grid} blocks of {sms} "
+             f"SMs per product ({p.row_tiles} x {p.col_tiles}), A box {p.a_rows} rows, "
+             f"{p.stages} ring stages of {p.chunk} K tiles; {p.smem} bytes of shared memory")
 
 
 def phase_kernel_vs_plain(prep) -> float:
@@ -540,10 +558,13 @@ def _flip_share(got, want) -> float:
 
 def _k1_check(name: str, got, want, rule: str) -> float:
     """Hold one K1 output against the plain version's by ``rule``:
-    'elementwise', 'ulp' (with the flip share) or 'scale' (see K1_TOL)."""
+    'elementwise', 'ulp' (with the flip share), 'scale' (see K1_TOL) or 'f32'
+    (K1_F32_TOL of the largest value)."""
     err = (got - want).abs()
     scale = float(want.abs().max())
-    if rule == "ulp":
+    if rule == "f32":
+        ok = float(err.max()) <= K1_F32_TOL * scale
+    elif rule == "ulp":
         ok = float(err.max()) <= K1_BF16_ULP * scale and _flip_share(got, want) < K1_FLIP_SHARE
     elif rule == "scale":
         ok = float(err.max()) <= K1_TOL * scale
@@ -598,14 +619,56 @@ def phase_k1_split_and_cache():
         raise AssertionError("the weight-plane cache did not return one plane per version")
     _log("[kernel] weight-plane cache: one bf16 cast per weight version, recast after an "
          "in-place update, equal to w.to(torch.bfloat16)")
+    # the f32 forward's small planes: W's cached per version as the bf16 planes
+    # are, x's made by the same kernel at each call; bitwise the plain split
+    before = K1.small_plane.casts
+    small = K1.small_plane(w)
+    same = K1.small_plane(w) is small
+    with torch.no_grad():
+        w.mul_(0.5)
+    fresh = K1.small_plane(w)
+    if not (same and fresh is not small and K1.small_plane.casts == before + 2
+            and torch.equal(fresh.cpu(), K1.tf32_small(w.detach().cpu()))):
+        raise AssertionError("the small-plane cache did not return one plane per version")
+    for batch in K1_BATCHES:
+        x = _k1_inputs(batch, seed=batch)[0]
+        if not torch.equal(K1._small(x).cpu(), K1.tf32_small(x.cpu())):
+            raise AssertionError(f"the small-plane kernel differs from tf32_small at B={batch}")
+    _log(f"[kernel] small planes (v - tf32_big(v)): one per weight version, made again after "
+         f"an in-place update; the kernel bitwise tf32_small at B="
+         f"{'/'.join(map(str, K1_BATCHES))}")
 
 
-def phase_k1_vs_plain() -> tuple[float, float]:
+def phase_k1_tf32_truncation():
+    """What the f32 forward's design rests on: the tensor core reads an f32
+    operand handed to wgmma as tf32 as its big term. A one-pass product of
+    raw f32 operands must be bitwise the product of their tf32_big values,
+    at the shapes of the forward's products and on values of many
+    magnitudes."""
+    for batch in (1, 37, 256, 4096):
+        x, w1 = _k1_inputs(batch, seed=300 + batch)[:2]
+        for scale in (1.0, 3.0e-20, 7.0e15):
+            a = x * scale
+            raw = K1.tf32_product(a, w1)
+            big = K1.tf32_product(K1.tf32_big(a), K1.tf32_big(w1))
+            torch.cuda.synchronize()
+            if not torch.equal(raw, big):
+                raise AssertionError(
+                    f"a one-pass tf32 product of raw f32 operands is not the product of their "
+                    f"big terms at B={batch}, scale {scale}: max diff "
+                    f"{float((raw - big).abs().max()):.3e}")
+    _log("[kernel] tf32 truncation: one wgmma pass on raw f32 operands is bitwise the pass on "
+         "their tf32_big values (B=1/37/256/4096 against W1, x scaled by 1, 3e-20, 7e15)")
+
+
+def phase_k1_vs_plain() -> tuple[float, float, float]:
     """-> (worst forward error, worst backward error) over every batch and
-    policy."""
-    worst_f = worst_b = 0.0
+    policy, and the f32 forward's worst error."""
+    worst_f = worst_b = worst_f32 = 0.0
     for policy, pname in ((BF16, "bf16"), (F32, "f32")):
         for batch in K1_BATCHES:
+            if policy is F32:
+                worst_f32 = max(worst_f32, _k1_f32_forward_check(batch, "K1_BATCHES"))
             x, w1, b1, w2, b2, dy = _k1_inputs(batch, seed=batch)
             fwd = K1.res_block_forward(x, w1, b1, w2, b2, policy)
             torch.cuda.synchronize()
@@ -616,7 +679,8 @@ def phase_k1_vs_plain() -> tuple[float, float]:
             # to its plain plane by the rule of a rounded output, x bitwise
             saved = K1.kernel_saved(x, *want[1:], policy)
             errs_f = [_k1_check(f"res_block_forward {pname} B={batch} {n}", g.float(),
-                                w.float(), "ulp" if policy is BF16 and n == "h" else "elementwise")
+                                w.float(), "f32" if policy is F32 else
+                                "ulp" if n == "h" else "elementwise")
                       for n, g, w in zip(("y", "a1", "h", "a2"), fwd, (want[0], *saved[1:]))]
             if not torch.equal(fwd[4], saved[0]):
                 raise AssertionError(f"res_block_forward {pname} B={batch}: the saved x differs")
@@ -653,7 +717,7 @@ def phase_k1_vs_plain() -> tuple[float, float]:
                  f"{' '.join(f'{e:.2e}' for e in errs_f)}; backward "
                  f"dx/dW1/db1/dW2/db2 {' '.join(f'{e:.2e}' for e in errs_b)}{flips}; two "
                  f"runs bitwise equal")
-    return worst_f, worst_b
+    return max(worst_f, worst_f32), worst_b, worst_f32
 
 
 def _synthetic_batch(n: int, seed: int) -> torch.Tensor:
@@ -734,11 +798,15 @@ def _to(draws, device):
 def _reset_counts():
     K2.fused_sides_forward.launches = 0
     K1.res_block_forward.launches = K1.res_block_backward.launches = 0
+    K1.res_block_forward.f32_launches = 0
 
 
 def _counts() -> dict:
+    """Calls that launched each kernel; res_block_forward_f32 counts the f32
+    forward's (the tf32 route), which res_block_forward counts too."""
     return {"fused_sides_forward": K2.fused_sides_forward.launches,
             "res_block_forward": K1.res_block_forward.launches,
+            "res_block_forward_f32": K1.res_block_forward.f32_launches,
             "res_block_backward": K1.res_block_backward.launches}
 
 
@@ -886,20 +954,30 @@ def phase_main_path(stacked, tmp: Path) -> tuple[dict, dict]:
     save_lifter_pt(stacked.left, serve / "left_lifter.pt")
     save_lifter_pt(stacked.right, serve / "right_lifter.pt")
     common = ["--data", str(data), "--batch-size", str(MAIN_BATCH), "--device", "cuda"]
-    outs = {}
+    outs, made = {}, {}
     for name, flags in (("fused", ["--fused"]), ("bf16", ["--policy", "bf16"]),
                         ("f32", [])):
+        before = K1.weight_plane.casts, K1.small_plane.casts
         outs[name], counts[f"lift {name}"] = _lift(common + ["--model-dir", str(serve)],
                                                    flags, tmp / f"{name}.npz", name)
+        made[name] = (K1.weight_plane.casts - before[0], K1.small_plane.casts - before[1])
     if counts["lift fused"]["fused_sides_forward"] < 1:
         raise AssertionError("lift --fused did not launch fused_sides_forward")
+    # each of the two lifters' 14 block weights gets its plane once, in the
+    # warm-up chunk: bf16 planes under bf16, small planes under f32
+    if made != {"fused": (0, 0), "bf16": (2 * 7 * 2, 0), "f32": (0, 2 * 7 * 2)} \
+            or counts["lift f32"]["res_block_forward_f32"] != counts["lift f32"][
+                "res_block_forward"]:
+        raise AssertionError(f"lift: (bf16, small) planes made {made}, f32 forward calls "
+                             f"{counts['lift f32']}; expected 28 bf16 planes for --policy "
+                             f"bf16 and 28 small planes for f32, once each")
     err = _check_fused(outs["fused"], outs["bf16"], "seeded lifters", "elementwise")
     f32_gap = float(np.abs(outs["f32"] - outs["bf16"]).max())
     if f32_gap > 0.05:
         raise AssertionError(f"lift --policy bf16 is {f32_gap:.3e} from f32")
     _log(f"[main] lift --fused vs --policy bf16: max abs err {err:.3e}; bf16 vs f32: "
          f"{f32_gap:.3e}; fused_sides_forward launches "
-         f"{counts['lift fused']['fused_sides_forward']}")
+         f"{counts['lift fused']['fused_sides_forward']}; planes made (bf16, small): {made}")
 
     # stages 1 -> 2 -> 3a -> 3b -> 4, one epoch each, in one model directory
     models = tmp / "models"
@@ -1093,7 +1171,7 @@ def phase_data_parallel(data: Path, models: Path, tmp: Path, main_3a: dict) -> d
                    backend="gloo")
     SECONDS["data parallel: 2 gloo ranks"] = time.perf_counter() - t0
     ranks = [torch.load(tmp / f"dp_rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
-    want = {"res_block_forward": DP_STEPS * K1_FWD_PER_STEP,
+    want = {"res_block_forward": DP_STEPS * K1_FWD_PER_STEP, "res_block_forward_f32": 0,
             "res_block_backward": DP_STEPS * K1_BWD_PER_STEP, "fused_sides_forward": 0}
     for r, got in enumerate(ranks):
         if got["counts"] != want or one["counts"] != want:
@@ -1233,7 +1311,7 @@ def phase_zero(tmp: Path) -> dict:
     SECONDS["zero: 2 gloo ranks"] = time.perf_counter() - t0
     ranks = [torch.load(tmp / f"zero_rank{r}.pt", weights_only=False) for r in range(ZERO_RANKS)]
     per_step = {"res_block_forward": K1_FWD_PER_STEP, "res_block_backward": K1_BWD_PER_STEP,
-                "fused_sides_forward": 0}
+                "res_block_forward_f32": 0, "fused_sides_forward": 0}
     want = {k: DP_STEPS * v for k, v in per_step.items()}
     size = sum(p.numel() for p in _stage("3a", seed=3, batch=MAIN_BATCH).model.parameters())
     flat = torch.cat([got["shard"] for got in ranks])
@@ -1310,7 +1388,8 @@ def phase_tp(tmp: Path) -> dict:
     lr = LifterTrainConfig().optim.learning_rate
     one = _one_process_3a()
     counts = {}
-    zero = {"res_block_forward": 0, "res_block_backward": 0, "fused_sides_forward": 0}
+    zero = {"res_block_forward": 0, "res_block_forward_f32": 0, "res_block_backward": 0,
+            "fused_sides_forward": 0}
     for mesh in TP_MESHES:
         world = mesh[0] * mesh[1]
         t0 = time.perf_counter()
@@ -1418,10 +1497,12 @@ def phase_pp(tmp: Path) -> dict:
     per = PP_DEPTH // PP_STAGES
     counts = {}
     for name in ("f32", "bf16"):
-        want_one = {"res_block_forward": PP_DEPTH, "res_block_backward": PP_DEPTH,
-                    "fused_sides_forward": 0}
-        want = {"res_block_forward": PP_MICRO * per, "res_block_backward": PP_MICRO * per,
-                "fused_sides_forward": 0}
+        f32 = name == "f32"
+        want_one = {"res_block_forward": PP_DEPTH, "res_block_forward_f32": PP_DEPTH * f32,
+                    "res_block_backward": PP_DEPTH, "fused_sides_forward": 0}
+        want = {"res_block_forward": PP_MICRO * per,
+                "res_block_forward_f32": PP_MICRO * per * f32,
+                "res_block_backward": PP_MICRO * per, "fused_sides_forward": 0}
         if one[name]["counts"] != want_one:
             raise AssertionError(f"sequential trunk {name}: K1 calls {one[name]['counts']}, "
                                  f"expected {want_one}")
@@ -1463,14 +1544,30 @@ def _eval_args(data: Path, models: Path, *flags) -> list:
 
 
 def _k1_f32_forward_check(batch: int, why: str) -> float:
-    """K1's f32 forward against its plain version at ``batch``."""
+    """K1's f32 forward against its plain version at ``batch``: each of y, a1,
+    h, a2 within K1_F32_TOL of its largest value, and bitwise repeatable; a
+    one-TF32-pass control (``res_block_forward_tf32(passes=1)``, computed
+    here in PyTorch) beyond that bound on every output. -> the worst error."""
     x, w1, b1, w2, b2, _ = _k1_inputs(batch, seed=batch)
     got = K1.res_block_forward(x, w1, b1, w2, b2, F32)
+    again = K1.res_block_forward(x, w1, b1, w2, b2, F32)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"res_block_forward f32 is not repeatable at B={batch}")
     want = K1.res_block_forward_reference(x, w1, b1, w2, b2, F32)
-    errs = [_k1_check(f"res_block_forward f32 B={batch} {n}", g, w, "elementwise")
-            for n, g, w in zip(("y", "a1", "h", "a2"), got, want)]
-    _log(f"[kernel] res_block f32 B={batch} ({why}): max abs err forward "
-         f"y/a1/h/a2 {' '.join(f'{e:.2e}' for e in errs)}")
+    names = ("y", "a1", "h", "a2")
+    errs = [_k1_check(f"res_block_forward f32 B={batch} {n}", g, w, "f32")
+            for n, g, w in zip(names, got, want)]
+    rel = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+    one = [float((g - w).abs().max() / w.abs().max())
+           for g, w in zip(K1.res_block_forward_tf32(x, w1, b1, w2, b2, passes=1), want)]
+    if min(one) <= K1_F32_TOL:
+        raise AssertionError(f"the f32 bound does not reject one TF32 pass at B={batch}: "
+                             f"errors {one} of the largest values")
+    _log(f"[kernel] res_block f32 B={batch} ({why}): forward y/a1/h/a2 max abs err "
+         f"{' '.join(f'{e:.2e}' for e in errs)}, of the largest value "
+         f"{' '.join(f'{e:.2e}' for e in rel)} (bound {K1_F32_TOL}; one-TF32-pass control "
+         f"{' '.join(f'{e:.2e}' for e in one)}); two runs bitwise equal")
     return max(errs)
 
 
@@ -1873,7 +1970,7 @@ def phase_export(data: Path, models: Path, tmp: Path, smi: str) -> dict:
         fn = art.call
         with torch.inference_mode():
             lift._chunked(fn, poses[:MAIN_BATCH], MAIN_BATCH, "cuda")  # warm-up chunk
-            casts = K1.weight_plane.casts
+            casts = K1.weight_plane.casts + K1.small_plane.casts
             seconds = []
             for rep in range(3):  # the first pass counted; no cast after the warm-up
                 _reset_counts()
@@ -1882,7 +1979,7 @@ def phase_export(data: Path, models: Path, tmp: Path, smi: str) -> dict:
                 seconds.append(time.perf_counter() - t0)
                 if rep == 0:
                     got, counts[f"artifact {name}"] = out, _counts()
-            casts = K1.weight_plane.casts - casts
+            casts = K1.weight_plane.casts + K1.small_plane.casts - casts
         live_rate = max(_lift_rate(served, live_flags, tmp / "e.npz") for _ in range(3))
         got = got.reshape(n, 3, 17)
         err = np.abs(got - want)
@@ -1894,26 +1991,29 @@ def phase_export(data: Path, models: Path, tmp: Path, smi: str) -> dict:
                 or counts[f"artifact {name}"]["fused_sides_forward"] or casts):
             raise AssertionError(f"the {name} artifact made {k1} K1 forward calls for {chunks} "
                                  f"chunks (live lift {live_k1} with its warm-up chunk, expected "
-                                 f"{per_chunk} per chunk), {casts} weight casts after its "
-                                 f"warm-up: {counts[f'artifact {name}']}")
+                                 f"{per_chunk} per chunk), {casts} weight or small planes "
+                                 f"made after its warm-up: {counts[f'artifact {name}']}")
         _log(f"[export] {name}: {summary['bytes']} bytes, batch {summary['batch']}, verified on "
              f"the card; lifts {n} poses in {chunks} chunks of {MAIN_BATCH} with {k1} K1 forward "
              f"calls ({per_chunk} per chunk, as the live lift), max abs err vs lift {err.max():.3e}"
              f" ({'bitwise equal' if np.array_equal(got, want) else 'not bitwise equal'}); "
              f"poses/s (best of 3 passes): artifact {n / min(seconds):.1f}, live lift "
              f"{live_rate} on {smi}")
-    # the bf16 artifact: each of its 28 weights cast to its bf16 plane once, at
-    # the warm-up (the loop above found none cast after it)
-    art = ckpt.deserialize_exported(paths["3a bf16"], "cuda")
-    casts = K1.weight_plane.casts
-    with torch.inference_mode():
-        for _ in range(3):
-            lift._chunked(art.call, poses[:MAIN_BATCH], MAIN_BATCH, "cuda")
-    casts = K1.weight_plane.casts - casts
-    if casts != 2 * 2 * 7:
-        raise AssertionError(f"a fresh bf16 artifact cast {casts} weights in 3 calls, not 28 once")
-    _log(f"[export] 3a bf16 artifact freshly loaded: {casts} weight casts in 3 calls (28 "
-         f"weights, each once)")
+    # a fresh bf16 artifact casts each of its 28 weights to its bf16 plane once,
+    # a fresh f32 one makes each one's small plane once, both in the first
+    # chunk (the loop above found none made after the warm-up)
+    for name, want in (("3a bf16", (2 * 2 * 7, 0)), ("3a f32", (0, 2 * 2 * 7))):
+        art = ckpt.deserialize_exported(paths[name], "cuda")
+        before = K1.weight_plane.casts, K1.small_plane.casts
+        with torch.inference_mode():
+            for _ in range(3):
+                lift._chunked(art.call, poses[:MAIN_BATCH], MAIN_BATCH, "cuda")
+        made = (K1.weight_plane.casts - before[0], K1.small_plane.casts - before[1])
+        if made != want:
+            raise AssertionError(f"a fresh {name} artifact made {made} (bf16, small) planes in "
+                                 f"3 calls, not {want}: 28 weights, each once")
+        _log(f"[export] {name} artifact freshly loaded: {made[0]} bf16 and {made[1]} small "
+             f"planes made in 3 calls (28 weights, each once)")
 
     # serve --artifact under concurrent clients, against lift
     n = SERVE_CLIENTS * SERVE_POSES
@@ -2596,8 +2696,10 @@ def phase_k1_times(smi):
             if method_bounds is not None:
                 m_bound, m_by = method_bounds[which == "backward"]
                 row["method_bound_ms"] = m_bound
-                method = (f", at the kernel's own method (bf16 tensor cores, 6 term products "
-                          f"per f32 product) {m_bound:.4f} ms ({m_by})")
+                how = ("three TF32 passes" if which == "forward"
+                       else "bf16 tensor cores, 6 term products")
+                method = (f", at the kernel's own method ({how} per f32 product) "
+                          f"{m_bound:.4f} ms ({m_by})")
             rows[batch, pname, which] = row
             _log(f"[time] res_block_{which} {pname} B={batch} by kernel (ms per launch): "
                  f"{_kernel_breakdown(kernel)[0]}")
@@ -2727,6 +2829,7 @@ def main() -> int:
     prep = K2.prepare_fused_weights(stacked)
     k2_err = _timed("K2 vs plain", phase_kernel_vs_plain, prep)
     _timed("K1 split and cache", phase_k1_split_and_cache)
+    _timed("K1 tf32 truncation", phase_k1_tf32_truncation)
     k1_err = _timed("K1 vs plain", phase_k1_vs_plain)
     for name in STAGE_NAMES:
         _timed(f"step card vs CPU {name}", phase_step_card_vs_cpu, name)
@@ -2792,6 +2895,9 @@ def main() -> int:
         {"name": "res_block_forward", "route": "cuda", "source": src + "resblock.cu",
          "replaces": "links_tpu/experimental/pallas_resblock.py:60", "max_abs_err": k1_err[0],
          **k1_rows[512, "bf16", "forward"]},
+        {"name": "res_block_forward_f32", "route": "cuda", "source": src + "resblock.cu",
+         "replaces": "links_tpu/experimental/pallas_resblock.py:60", "max_abs_err": k1_err[2],
+         **k1_rows[MAIN_BATCH, "f32", "forward"]},
         {"name": "res_block_backward", "route": "cuda", "source": src + "resblock.cu",
          "replaces": "links_tpu/experimental/pallas_resblock.py:69", "max_abs_err": k1_err[1],
          **k1_rows[512, "bf16", "backward"]},

@@ -1,5 +1,6 @@
 // PTX helpers for Hopper (sm_90a) shared by the port's CUDA sources: mbarriers, TMA, wgmma
-// descriptors, fences and instantiations, and the tensor-map encoder with its cache.
+// descriptors, fences and instantiations (bf16 and tf32), and the tensor-map encoder with its
+// cache.
 // Included by resblock.cu (K1) and fused_infer.cu (K2); _build.py hashes it into both libraries.
 
 #pragma once
@@ -164,6 +165,110 @@ K1_WGMMA_128(0, 0)
 K1_WGMMA_128(0, 1)
 K1_WGMMA_128(1, 1)
 
+// d (m64 x n) += A (64 x 8) B (8 x n)^T, tf32 from shared memory, both operands K-major (wgmma
+// has no transpose bits for tf32). A tf32 operand is a 32-bit word; the tensor core reads its
+// top 19 bits (sign, exponent, 10 mantissa bits), so an f32 handed over as it is enters as its
+// value with the low 13 mantissa bits cleared (chip_smoke.py checks that on the card).
+// accumulate = 0 overwrites d (scale-d = 0), so no other instruction need write d while
+// wgmmas are in flight: ptxas would then serialize them.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                           int accumulate = 1);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<8>(float (&d)[4], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // cuTensorMapEncodeTiled, reached through the runtime so the library needs no -lcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -188,26 +293,31 @@ EncodeTiled encoder() {
 
 struct MapKey {
   const void* plane;
-  int rows, cols, box_rows;
+  int rows, cols, box_rows, chunk;
   bool operator==(const MapKey& o) const {
-    return plane == o.plane && rows == o.rows && cols == o.cols && box_rows == o.box_rows;
+    return plane == o.plane && rows == o.rows && cols == o.cols && box_rows == o.box_rows &&
+           chunk == o.chunk;
   }
 };
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
     return std::hash<const void*>()(k.plane) ^ (static_cast<size_t>(k.rows) << 20) ^
-           (static_cast<size_t>(k.cols) << 40) ^ static_cast<size_t>(k.box_rows);
+           (static_cast<size_t>(k.cols) << 40) ^ static_cast<size_t>(k.box_rows) ^
+           (static_cast<size_t>(k.chunk) << 56);
   }
 };
 
-// The map of a row-major bf16 plane (rows x cols) in boxes of 64 columns x box_rows rows, in the
-// 128-byte swizzle; what lies outside the plane reads as zeros. A map is a function of these
-// four values alone, so maps are kept by them: the caching allocator hands a training step the
-// same addresses step after step, and an encode costs the host more than a launch.
-cudaError_t plane_map(CUtensorMap* map, const void* plane, int rows, int cols, int box_rows) {
+// The map of a row-major plane (rows x cols), in the 128-byte swizzle: of bf16 (chunk = 0) in 2D
+// boxes of 64 columns x box_rows rows; of f32 (chunk >= 1) viewed as (32 columns, rows, cols / 32
+// K tiles), in 3D boxes of 32 x box_rows x chunk, which land as `chunk` consecutive K tiles of
+// box_rows rows of 128 bytes. What lies outside the plane reads as zeros. A map is a function of
+// these five values alone, so maps are kept by them: the caching allocator hands a training
+// step the same addresses step after step, and an encode costs the host more than a launch.
+cudaError_t plane_map(CUtensorMap* map, const void* plane, int rows, int cols, int box_rows,
+                      int chunk = 0) {
   static std::mutex mutex;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
-  const MapKey key = {plane, rows, cols, box_rows};
+  const MapKey key = {plane, rows, cols, box_rows, chunk};
   {
     std::lock_guard<std::mutex> lock(mutex);
     const auto hit = maps.find(key);
@@ -218,11 +328,16 @@ cudaError_t plane_map(CUtensorMap* map, const void* plane, int rows, int cols, i
   }
   const EncodeTiled fn = encoder();
   if (!fn) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(plane), dims,
+  const bool f32 = chunk > 0;
+  const cuuint64_t rows64 = static_cast<cuuint64_t>(rows), cols64 = static_cast<cuuint64_t>(cols);
+  const cuuint64_t dims[3] = {f32 ? 32 : cols64, rows64, cols64 / 32};
+  const cuuint64_t strides[2] = {cols64 * (f32 ? 4 : 2), 128};
+  const cuuint32_t box[3] = {f32 ? 32u : 64u, static_cast<cuuint32_t>(box_rows),
+                             static_cast<cuuint32_t>(chunk)};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapDataType type =
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = fn(map, type, f32 ? 3 : 2, const_cast<void*>(plane), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

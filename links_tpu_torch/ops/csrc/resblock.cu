@@ -15,17 +15,24 @@
 //     gradients g1 and g2 stay f32 as matmul operands while W1, W2, x and h enter rounded to
 //     bf16, and the four products (dh, g1 W1, dW1, dW2) are rounded to bf16, as the transposes
 //     of JAX's bf16 dots are; db1 and db2 are f32 sums.
-//   f32: every product at f32 precision (never TF32).
-// Tensor cores multiply bf16, so every operand is a sum of bf16 terms: one term for an operand
-// the policy rounds to bf16, two (hi = bf16(v), lo = bf16(v - hi): 16 significant bits) for an
-// f32 gradient under the bf16 policy, three (24 bits, f32's own precision) under the f32 policy.
-// A product sums the term products i + j < max(terms).
+//   f32: the forward's products in three TF32 passes (~22 significant bits per product, never
+//     one pass); the backward's at f32 precision through bf16 terms (never TF32).
+// Tensor cores multiply bf16 or tf32. Under bf16 every operand is a sum of bf16 terms: one term
+// for an operand the policy rounds to bf16, two (hi = bf16(v), lo = bf16(v - hi): 16
+// significant bits) for an f32 gradient. The f32 backward splits each operand into three bf16
+// terms (24 bits, f32's own precision) and sums the term products i + j < 3. The f32 forward
+// splits each operand v into big + small, big = v with its low 13 mantissa bits cleared (a tf32
+// value: 11 significant bits) and small = v - big (exact), and sums big.big + small.big +
+// big.small on tf32 wgmma (small.small, ~2^-22 of the product, is dropped; small enters the
+// tensor core truncated to 11 bits, ~2^-22 again).
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16) at the training step's shape
 // B = 512, H = 1024, counting the block's own inputs and outputs once (f32 masters):
 //   forward: 2 products, 2.15 GFLOP -> 2.2 us; W1, W2, b1, b2, x in and y out, 12.6 MB -> 3.8 us.
 //   backward: from (x, W, b, dy) to (dx, dW, db) a block needs 6 products (a1 and a2 recomputed),
 //     6.4 GFLOP -> 6.5 us; 23.1 MB -> 6.9 us.
+//   f32 forward at its own method (three TF32 passes, 494.7 TFLOP/s dense): 13.0 us; at B =
+//     4096, 104 us.
 // Both are bound by bytes at B = 512 and by operations at B = 4096. chip_smoke.py recomputes
 // these for the shapes it times.
 //
@@ -53,10 +60,37 @@
 // encoded on the host and kept by address and shape. Launches: forward 3 (split x; a1 and the
 // h plane; a2 and y); backward 6 (split g2; dh -> g1; dW2; dx; dW1; db1 and db2).
 //
-// f32 policy: the first design, kept as it was. A plain tiled GEMM with wmma bf16 16x16x16
+// f32 forward: the same ring on f32 masters and tf32 wgmma (tf32_gemm). wgmma takes tf32
+// operands only K-major, and both forward products are: x and h by rows, W in torch's (out,
+// in) layout. The tensor core reads a tf32 operand's top 19 bits, so TMA copies the f32 x, h,
+// W1 and W2 as they lie and the tensor core sees their big terms (chip_smoke.py checks that
+// bitwise). The small terms are f32 planes beside them: W's cached per weight version by the
+// wrapper (small_kernel), x's written by small_kernel at each call, h's by the first product's
+// epilogue beside the f32 a1 and h that the backward reads; at one row tile (B <= 64 at H =
+// 1024) A's small tiles are instead made in shared memory from its master as each stage
+// arrives, and neither x's nor h's plane is written. A stage holds 1 to 8 K tiles (32 f32, 128
+// bytes, deep) of A's and B's master and small planes, one 3D TMA box per operand. Per k8
+// slice a consumer warpgroup issues big.big, small.big and big.small; each K tile's products go
+// to an accumulator of their own, added (round to nearest) into a register sum while the next
+// tile's run: the tensor core's own adds truncate, with an error that grows with what they add
+// to (one accumulator over all of K came within 1.6x of chip_smoke.py's f32 bound; per-tile
+// sums within 1/5 of it). The tile plan comes from the host (ops/resblock.py:f32_plan): 128 x
+// 128 with two row warpgroups (whose registers come from the producer's warpgroup through
+// setmaxnreg), or 64 rows by 64, 32, 16 or 8 columns, the largest whose grid leaves at most 1/8
+// of the SMs idle (at B <= 64 one row tile by 8 columns: at H = 1024, 128 blocks stream W in
+// parallel). A narrow tile's K is split over 2 or 4 warpgroups, whose sums are added in order:
+// a warpgroup's wgmmas run in order and a narrow one's are short, so at B <= 256 one warpgroup's
+// chain of issues, not the bytes, set the time. The ring is as deep as shared memory allows, at
+// two blocks per SM where the grid is larger than the card. At one row tile A's TMA box has
+// only the rows below B, rounded to 8: the m64 wgmma reads the rest of its rows from what
+// follows in shared memory, which reaches only output rows the epilogue drops. Launches:
+// forward 3 (x's small plane; a1, h and h's small plane; a2 and y), 2 at one row tile.
+//
+// f32 backward: the first design, kept as it was. A plain tiled GEMM with wmma bf16 16x16x16
 // fragments: 64 x 64 output tiles, a 32-deep K step staged through registers from the f32
 // masters (each operand split into three bf16 terms as it is stored to shared memory), one
-// shared-memory buffer. Launches: forward 2, backward 5.
+// shared-memory buffer. Launches: 5. Its dh, dx and dW read W or the activations along M or N,
+// which tf32 wgmma cannot take.
 //
 // Under both policies every output tile belongs to one block, which loops over the whole
 // reduction (K = H, or K = B for dW), so there are no float atomics and repeated runs agree
@@ -91,7 +125,7 @@ constexpr int kPadC = 4;       // f32 elements of row padding of the accumulator
 constexpr int kTermElems = BM * (BK + kPad);
 constexpr float kSlope = 0.01f;
 
-enum Epi { kFwd1, kFwd2, kDh, kDx, kDw };
+enum Epi { kFwd1, kFwd2, kDh, kDx, kDw, kProduct };
 
 // C (M x N) = A (M x K) B^T, with B given as N x K. Element (r, k) of an operand lies at
 // p[r * ld + k] when it is contiguous along k, else at p[k * ld + r]. Outputs and `aux` are
@@ -103,9 +137,7 @@ struct Gemm {
   long long lda, ldb;
   int M, N, K;
   float* out0;
-  float* out1;
-  const float* bias;  // (N)
-  const float* aux;   // the epilogue's elementwise input
+  const float* aux;  // the epilogue's elementwise input
 };
 
 __device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : kSlope * v; }
@@ -167,18 +199,10 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* s, const float4 (&v)[2
 }
 
 template <int EPI>
-__device__ __forceinline__ void epilogue(const Gemm& g, const float4 acc, long long o, int n) {
+__device__ __forceinline__ void epilogue(const Gemm& g, const float4 acc, long long o) {
   float v[4] = {acc.x, acc.y, acc.z, acc.w};
-  float r0[4], r1[4];
-  if (EPI == kFwd1 || EPI == kFwd2) {
-    const float4 b = *reinterpret_cast<const float4*>(g.bias + n);
-    v[0] += b.x;
-    v[1] += b.y;
-    v[2] += b.z;
-    v[3] += b.w;
-  }
   float aux[4] = {0.f, 0.f, 0.f, 0.f};
-  if (EPI == kFwd2 || EPI == kDh || EPI == kDx) {
+  if (EPI == kDh || EPI == kDx) {
     const float4 a = __ldg(reinterpret_cast<const float4*>(g.aux + o));
     aux[0] = a.x;
     aux[1] = a.y;
@@ -187,23 +211,13 @@ __device__ __forceinline__ void epilogue(const Gemm& g, const float4 acc, long l
   }
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    if (EPI == kFwd1) {  // a1, h
-      r0[c] = v[c];
-      r1[c] = lrelu(v[c]);
-    } else if (EPI == kFwd2) {  // a2, y
-      r0[c] = v[c];
-      r1[c] = lrelu(v[c]) + aux[c];
-    } else if (EPI == kDh) {  // g1 = dh * lrelu'(a1)
-      r0[c] = v[c] * dlrelu(aux[c]);
+    if (EPI == kDh) {  // g1 = dh * lrelu'(a1)
+      v[c] *= dlrelu(aux[c]);
     } else if (EPI == kDx) {  // dx = dy + g1 W1
-      r0[c] = aux[c] + v[c];
-    } else {  // dW
-      r0[c] = v[c];
-    }
+      v[c] += aux[c];
+    }  // else dW
   }
-  *reinterpret_cast<float4*>(g.out0 + o) = make_float4(r0[0], r0[1], r0[2], r0[3]);
-  if (EPI == kFwd1 || EPI == kFwd2)
-    *reinterpret_cast<float4*>(g.out1 + o) = make_float4(r1[0], r1[1], r1[2], r1[3]);
+  *reinterpret_cast<float4*>(g.out0 + o) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
@@ -277,7 +291,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm g) {
     const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
     const int m = row0 + r, n = col0 + c;
     if (m < g.M)
-      epilogue<EPI>(g, *reinterpret_cast<const float4*>(&sc[r][c]), (long long)m * g.N + n, n);
+      epilogue<EPI>(g, *reinterpret_cast<const float4*>(&sc[r][c]), (long long)m * g.N + n);
   }
 }
 
@@ -345,6 +359,7 @@ cudaError_t launch(const Gemm& g, cudaStream_t stream) {
 
 constexpr int kTK = 64;                // K tile: 64 bf16 = one 128-byte swizzled row
 constexpr int kRingBytes = 96 * 1024;  // a ring two blocks of an SM can hold side by side
+constexpr int kMaxSmem = 232448;       // the dynamic shared memory a block can have
 constexpr int kAtomBytes = 64 * 128;   // 64 rows of 128 bytes: one TMA box of 64 x 64
 constexpr int kSplitThreads = 64;  // 256 columns: 128 blocks at B = 512, H = 1024
 
@@ -686,6 +701,355 @@ cudaError_t split(const void* v, const void* mask, void* hi, void* lo, void* col
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------------------------
+// The f32 policy's forward: f32 masters by TMA, three tf32 passes per product on wgmma.
+
+constexpr uint32_t kTf32Big = 0xFFFFE000u;  // sign, exponent and the 10 mantissa bits of tf32
+constexpr int kF32Threads = 256;            // the small-plane kernel
+
+// v = big + small exactly: big is v with its low 13 mantissa bits cleared (what the tensor core
+// reads of v as a tf32 operand), small = v - big (exact: the cleared bits), signed as v so that
+// big + small gives v back bit for bit, -0 included.
+__device__ __forceinline__ float tf32_small(float v) {
+  return copysignf(v - __uint_as_float(__float_as_uint(v) & kTf32Big), v);
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+    small_kernel(const float4* __restrict__ v, float4* __restrict__ s, long long n4) {
+  for (long long i = blockIdx.x * static_cast<long long>(kF32Threads) + threadIdx.x; i < n4;
+       i += static_cast<long long>(gridDim.x) * kF32Threads) {
+    const float4 a = v[i];
+    s[i] = make_float4(tf32_small(a.x), tf32_small(a.y), tf32_small(a.z), tf32_small(a.w));
+  }
+}
+
+cudaError_t small_plane(const void* v, void* s, long long n, int device, cudaStream_t stream) {
+  const long long n4 = n / 4;
+  const long long blocks = (n4 + kF32Threads - 1) / kF32Threads, most = 8ll * sm_count(device);
+  const int grid = static_cast<int>(blocks < most ? blocks : most);
+  small_kernel<<<grid, kF32Threads, 0, stream>>>(static_cast<const float4*>(v),
+                                                   static_cast<float4*>(s), n4);
+  return cudaGetLastError();
+}
+
+// The tensor maps of one tf32 product: A's master and small plane (M x K), B's (N x K).
+struct MapsF32 {
+  CUtensorMap a, a_small, b, b_small;
+};
+
+// The epilogue's operands and the tile plan's runtime parts; outputs and `aux` are row-major
+// (M, N).
+struct EpiF32 {
+  float* out0;         // a1, a2 or the bare product
+  float* out1;         // h or y
+  float* small;        // h's small plane
+  const float* bias;   // (N)
+  const float* aux;    // x, y's residual
+  int M, N, K;
+  int a_rows;          // rows of A's TMA box: the tile's rows, or its rows below M rounded to 8
+  int chunk;           // K tiles (32 deep) per stage of the ring, and per TMA box
+  int stages;          // the ring's depth
+};
+
+// A stage of the ring: `chunk` K tiles each of A's master (a_rows rows of 128 bytes: 32 f32
+// along K), of A's small plane, of B's master (TBN rows), of B's small plane; one pass reads
+// only the masters.
+__host__ __device__ constexpr int f32_stage_bytes(int a_rows, int tbn, int chunk, bool three) {
+  return (three ? 2 : 1) * chunk * (a_rows + tbn) * 128;
+}
+// A block's dynamic shared memory: the swizzle's alignment slack, the ring, what a 64 x WG-row
+// wgmma reads past the ring's last A tile when A's box has fewer rows (rows below M only reach
+// the outputs that the epilogue drops), and the ring's full and empty barriers.
+__host__ __device__ constexpr int f32_smem_bytes(int wg, int tbn, int a_rows, int chunk,
+                                                 int stages, bool three) {
+  return 1024 + stages * f32_stage_bytes(a_rows, tbn, chunk, three) + (64 * wg - a_rows) * 128 +
+         16 * stages;
+}
+
+// TMA: the 3D box of `map` at (c0, c1, c2) into shared memory at dst; its bytes count towards
+// bar's transaction count.
+__device__ __forceinline__ void tma_load_chunk(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                               int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+template <int EPI>
+__device__ __forceinline__ void epilogue_f32(const EpiF32& e, int m, int n, const float4 acc) {
+  if (m >= e.M) return;
+  const long long o = static_cast<long long>(m) * e.N + n;
+  float v[4] = {acc.x, acc.y, acc.z, acc.w}, r[4];
+  if constexpr (EPI != kProduct) {
+    const float4 b = *reinterpret_cast<const float4*>(e.bias + n);
+    v[0] += b.x;
+    v[1] += b.y;
+    v[2] += b.z;
+    v[3] += b.w;
+  }
+  st4(e.out0 + o, v);  // a1, a2 or the bare product
+  if constexpr (EPI == kFwd1) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) r[c] = lrelu(v[c]);
+    st4(e.out1 + o, r);  // h
+#pragma unroll
+    for (int c = 0; c < 4; ++c) r[c] = tf32_small(r[c]);
+    if (e.small) st4(e.small + o, r);  // h's small plane, the next product's A
+  } else if constexpr (EPI == kFwd2) {
+    const float4 x = ldg4(e.aux + o);
+    r[0] = lrelu(v[0]) + x.x;
+    r[1] = lrelu(v[1]) + x.y;
+    r[2] = lrelu(v[2]) + x.z;
+    r[3] = lrelu(v[3]) + x.w;
+    st4(e.out1 + o, r);  // y
+  }
+}
+
+// C (M x N) = A (M x K) B^T (N x K), both f32 and K-major, on a WG x 64 by TBN output tile, in
+// three tf32 passes (THREE: big.big, small.big and big.small) or one (big.big: the start-up
+// check of the truncation). The producer keeps e.stages stages of e.chunk K tiles in flight, one
+// TMA box per operand and stage. Consumer warpgroup g owns the tile's 64 rows g % WG of the
+// stages j = g / WG (mod KW): KW > 1 splits a narrow tile's K over warpgroups, whose wgmmas then
+// run side by side (a warpgroup's run in order, and a narrow one's are short). A warpgroup adds
+// each K tile's products in an accumulator of their own and then, round to nearest, into a
+// register sum: the tensor core's own adds truncate, with an error that grows with what they
+// add to. Two accumulators take turns, so the sum is made while the next K tile's wgmmas run. At
+// one row warpgroup (WG = 1) the small terms have a third accumulator over the whole K; with
+// two, the 128 x 128 tile's accumulators would not fit beside it. The K groups' sums are added
+// in order at the end. ASPLIT (one row tile: A is a few rows): TMA copies A's master only, and
+// the K group writes A's small tiles beside it as each stage arrives (elementwise, so in the
+// same swizzled layout), so that A needs no small plane in device memory.
+template <int WG, int KW, int TBN, int EPI, bool THREE, bool ASPLIT>
+__global__ void __launch_bounds__(128 * WG * KW + (WG > 1 ? 128 : 32), 1)
+    tf32_gemm(__grid_constant__ const MapsF32 maps, const EpiF32 e) {
+  constexpr int kAcc = TBN / 2;  // accumulators per thread of m64 x TBN
+  constexpr int kGroups = WG * KW;  // consumer warpgroups
+  constexpr bool kApart = THREE && WG == 1;  // the small terms' own accumulator
+  const int stages = e.stages, chunk = e.chunk;
+  const int a_tile = e.a_rows * 128;   // one K tile of A's box
+  const int a_bytes = chunk * a_tile;  // A's master in a stage
+  const int stage_bytes = f32_stage_bytes(e.a_rows, TBN, chunk, THREE);
+  const int tx_bytes = stage_bytes - (ASPLIT ? a_bytes : 0);  // what TMA copies into a stage
+  const uint32_t b_off = (THREE ? 2 : 1) * a_bytes;  // B's master within a stage
+  const int b_bytes = chunk * TBN * 128;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;  // the swizzle's alignment
+  const uint32_t full0 = base + stages * stage_bytes + (64 * WG - e.a_rows) * 128;
+  const uint32_t empty0 = full0 + stages * 8;
+  const int m0 = blockIdx.y * 64 * WG, n0 = blockIdx.x * TBN;
+  const int nk = (e.K + 31) / 32, ns = (nk + chunk - 1) / chunk;  // K tiles, stages in all
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);        // the producer's arrival, plus the bytes
+      mbar_init(empty0 + 8 * s, 4 * WG);  // one arrival per warp of the K group reading it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  } else if (threadIdx.x == 128 * kGroups) {  // the producer's maps, fetched meanwhile
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&maps.a) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&maps.b) : "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kGroups) {  // the producer: one thread keeps the ring full
+    // two row warpgroups: the producer is a whole warpgroup, which gives its registers to them
+    if constexpr (WG > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 4 * kGroups && lane == 0) {
+      for (int j = 0; j < ns; ++j) {
+        const int s = j % stages;
+        if (j >= stages) mbar_wait(empty0 + 8 * s, ((j / stages) - 1) & 1);
+        const uint32_t st = base + s * stage_bytes, bar = full0 + 8 * s;
+        mbar_arrive_expect_tx(bar, tx_bytes);
+        tma_load_chunk(st, &maps.a, bar, 0, m0, j * chunk);
+        tma_load_chunk(st + b_off, &maps.b, bar, 0, n0, j * chunk);
+        if constexpr (THREE && !ASPLIT)
+          tma_load_chunk(st + a_bytes, &maps.a_small, bar, 0, m0, j * chunk);
+        if constexpr (THREE)
+          tma_load_chunk(st + b_off + b_bytes, &maps.b_small, bar, 0, n0, j * chunk);
+      }
+    }
+    return;
+  }
+  if constexpr (WG > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  // the consumer warpgroups
+  const int g = warp / 4, row_wg = g % WG, kgroup = g / WG;
+  float acc[2][kAcc], acc_s[kApart ? kAcc : 1], sum[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[0][i] = acc[1][i] = sum[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kApart ? kAcc : 1); ++i) acc_s[i] = 0.f;
+  // This warpgroup's K tiles l = 0, 1, ...: tile l % chunk of its stage l / chunk, which is the
+  // ring's stage kgroup + (l / chunk) KW.
+  const int mine = ns > kgroup ? (ns - kgroup + KW - 1) / KW : 0;  // its stages
+  const int last = kgroup + (mine - 1) * KW;                        // the last of them
+  const int n_local = mine > 0 ? (mine - 1) * chunk + (nk - last * chunk < chunk ?
+                                                       nk - last * chunk : chunk) : 0;
+  // One K tile into x (its first wgmma overwrites x), then prev (the warpgroup's K tile before
+  // it) into the sum. Descriptors (128-byte swizzle, K-major): a k8 slice is 32 bytes into each
+  // 128-byte row; 8-row groups lie 1024 bytes apart.
+  auto step = [&](float (&x)[kAcc], float (&prev)[kAcc], int l) {
+    const int j = kgroup + (l / chunk) * KW, c = l % chunk, s = j % stages;
+    const uint32_t st = base + s * stage_bytes;
+    if (c == 0) {
+      mbar_wait(full0 + 8 * s, (j / stages) & 1);
+      if constexpr (ASPLIT) {  // A's small tiles of the stage, from its masters
+        unsigned char* const ga = smem_raw + (st - smem_addr(smem_raw));
+        for (int i = threadIdx.x % 128; i < chunk * e.a_rows * 8; i += 128) {
+          const float4 v = *reinterpret_cast<const float4*>(ga + 16 * i);
+          *reinterpret_cast<float4*>(ga + a_bytes + 16 * i) =
+              make_float4(tf32_small(v.x), tf32_small(v.y), tf32_small(v.z), tf32_small(v.w));
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
+        asm volatile("bar.sync %0, 128;\n" ::"r"(3 + g) : "memory");  // the K group's warps
+      }
+    }
+    const uint32_t a = st + c * a_tile + row_wg * 64 * 128, b = st + b_off + c * TBN * 128;
+    fence_regs(x);
+    fence_regs(acc_s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = smem_desc(a + kk * 32, 16, 1024), db = smem_desc(b + kk * 32, 16, 1024);
+      if constexpr (THREE) {
+        const uint64_t das = smem_desc(a + a_bytes + kk * 32, 16, 1024);
+        const uint64_t dbs = smem_desc(b + b_bytes + kk * 32, 16, 1024);
+        if constexpr (kApart) {
+          wgmma_tf32<TBN>(acc_s, das, db);
+          wgmma_tf32<TBN>(acc_s, da, dbs);
+        } else {
+          wgmma_tf32<TBN>(x, das, db, kk > 0);
+          wgmma_tf32<TBN>(x, da, dbs);
+        }
+      }
+      wgmma_tf32<TBN>(x, da, db, kk > 0 || (THREE && !kApart));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the warpgroup's previous K tile is done
+    fence_regs(x);
+    fence_regs(prev);
+    fence_regs(acc_s);
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) sum[i] += prev[i];
+    if (c == 0 && l > 0 && lane == 0)  // the previous K tile ended a stage: release it
+      mbar_arrive(empty0 + 8 * ((j - KW) % stages));
+  };
+  for (int l = 0; l < n_local; l += 2) {
+    step(acc[0], acc[1], l);
+    if (l + 1 < n_local) step(acc[1], acc[0], l + 1);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+  fence_regs(acc_s);
+  const bool odd = n_local % 2;  // the last K tile went to acc[0]
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    if (n_local > 0) sum[i] += odd ? acc[0][i] : acc[1][i];
+    if constexpr (kApart) sum[i] += acc_s[i];
+  }
+
+  // The epilogue, through shared memory as wgmma_gemm's: each warp parks its 16 x TBN sums in
+  // the drained ring; the first K group's warps read them back as whole rows of float4s, with
+  // the other K groups' sums for the same rows added in order.
+  constexpr int kLd = TBN + 8;  // floats per staged row: conflict-free 8-byte writes
+  constexpr int kPart = 4 * WG * 16 * kLd;  // floats of one K group's sums
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kGroups) : "memory");
+  float* const staged = reinterpret_cast<float*>(smem_raw + (base - smem_addr(smem_raw)));
+  float* tile = staged + kgroup * kPart + (warp % (4 * WG)) * 16 * kLd;
+#pragma unroll
+  for (int j = 0; j < TBN / 8; ++j) {
+    float* p = tile + (lane / 4) * kLd + 8 * j + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(p) = make_float2(sum[4 * j], sum[4 * j + 1]);
+    *reinterpret_cast<float2*>(p + 8 * kLd) = make_float2(sum[4 * j + 2], sum[4 * j + 3]);
+  }
+  if constexpr (KW > 1) {
+    asm volatile("bar.sync 2, %0;\n" ::"n"(128 * kGroups) : "memory");
+    if (kgroup > 0) return;
+  } else {
+    __syncwarp();
+  }
+  constexpr int kRowsPerStep = 128 / TBN;  // a warp's 32 float4s cover this many rows
+  const int row0 = m0 + 64 * row_wg + 16 * (warp % 4);
+  const int c = 4 * (lane % (TBN / 4));
+#pragma unroll
+  for (int r = 0; r < 16; r += kRowsPerStep) {
+    const int rr = r + lane / (TBN / 4);
+    float4 v = *reinterpret_cast<const float4*>(tile + rr * kLd + c);
+#pragma unroll
+    for (int q = 1; q < KW; ++q) {
+      const float4 w = *reinterpret_cast<const float4*>(tile + q * kPart + rr * kLd + c);
+      v = make_float4(v.x + w.x, v.y + w.y, v.z + w.z, v.w + w.w);
+    }
+    epilogue_f32<EPI>(e, row0 + rr, n0 + c, v);
+  }
+}
+
+// The staged sums of every consumer warp fit in the ring, which holds 2 stages per K group, or
+// all `ns` stages of the product.
+__host__ __device__ constexpr bool f32_ring_fits(int wg, int kw, int tbn, int a_rows, int chunk,
+                                                 int stages, int ns, bool three) {
+  return stages >= (2 * kw < ns ? 2 * kw : ns) &&
+         kw * 4 * wg * 16 * (tbn + 8) * 4 <= stages * f32_stage_bytes(a_rows, tbn, chunk, three);
+}
+
+template <int WG, int KW, int TBN, int EPI, bool THREE, bool ASPLIT>
+cudaError_t launch_tf32(const void* a, const void* a_small, const void* b, const void* b_small,
+                        const EpiF32& e, int device, cudaStream_t stream) {
+  const int smem = f32_smem_bytes(WG, TBN, e.a_rows, e.chunk, e.stages, THREE);
+  if (e.a_rows < 8 || e.a_rows > 64 * WG || e.a_rows % 8 || e.N % TBN || e.K % 32 ||
+      e.chunk < 1 || e.chunk > 8 || smem > kMaxSmem ||
+      !f32_ring_fits(WG, KW, TBN, e.a_rows, e.chunk, e.stages,
+                     (e.K / 32 + e.chunk - 1) / e.chunk, THREE))
+    return cudaErrorInvalidValue;
+  auto kernel = tf32_gemm<WG, KW, TBN, EPI, THREE, ASPLIT>;
+  static bool sized[64] = {};
+  cudaError_t err = cudaSuccess;
+  if (device < 0 || device >= 64 || !sized[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    if (device >= 0 && device < 64) sized[device] = true;
+  }
+  MapsF32 maps = {};
+  err = plane_map(&maps.a, a, e.M, e.K, e.a_rows, e.chunk);
+  if (err == cudaSuccess) err = plane_map(&maps.b, b, e.N, e.K, TBN, e.chunk);
+  if (THREE && !ASPLIT && err == cudaSuccess)
+    err = plane_map(&maps.a_small, a_small, e.M, e.K, e.a_rows, e.chunk);
+  if (THREE && err == cudaSuccess) err = plane_map(&maps.b_small, b_small, e.N, e.K, TBN, e.chunk);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(e.N / TBN, (e.M + 64 * WG - 1) / (64 * WG));
+  kernel<<<grid, 128 * WG * KW + (WG > 1 ? 128 : 32), smem, stream>>>(maps, e);
+  return cudaGetLastError();
+}
+
+// One three-pass product on the plan's tile (ops/resblock.py:f32_plan; F32_KERNELS there lists
+// these): A's small tiles from its master in shared memory (a_split: one row tile, K split), or
+// from a_small.
+template <int EPI>
+cudaError_t run_tf32(int wg, int kw, int tbn, bool a_split, const void* a, const void* a_small,
+                     const void* b, const void* b_small, const EpiF32& e, int device,
+                     cudaStream_t stream) {
+#define K1_TF32_TILE(WG, KW, TBN, ASPLIT)                                                      \
+  if (wg == WG && kw == KW && tbn == TBN && a_split == ASPLIT)                                  \
+    return launch_tf32<WG, KW, TBN, EPI, true, ASPLIT>(a, a_small, b, b_small, e, device, stream);
+  K1_TF32_TILE(2, 1, 128, false)
+  K1_TF32_TILE(1, 2, 64, false)
+  K1_TF32_TILE(1, 1, 64, false)
+  K1_TF32_TILE(1, 2, 32, false)
+  K1_TF32_TILE(1, 2, 32, true)
+  K1_TF32_TILE(1, 4, 16, false)
+  K1_TF32_TILE(1, 1, 16, false)
+  K1_TF32_TILE(1, 4, 16, true)
+  K1_TF32_TILE(1, 4, 8, false)
+  K1_TF32_TILE(1, 1, 8, false)
+  K1_TF32_TILE(1, 4, 8, true)
+#undef K1_TF32_TILE
+  return cudaErrorInvalidValue;
+}
+
 // Runs fn() with `device` current, and restores the calling thread's device.
 template <typename F>
 int on_device(int device, F fn) {
@@ -704,35 +1068,79 @@ bool bad_shape(int B, int H) { return B < 1 || H < BN || H % BN; }
 
 extern "C" {
 
-// The f32 policy's forward for x (B, H): writes a1, h, a2 (saved for the backward) and y, all
-// f32 (B, H). Launches on `stream` and returns the cudaError_t of the launches (0 = ok); does
-// not synchronise.
-int res_block_forward_f32(const void* x, const void* w1, const void* b1, const void* w2,
-                          const void* b2, void* a1, void* h, void* a2, void* y, int B, int H,
-                          int device, void* stream) {
+// The f32 policy's forward for x (B, H), given the small planes of W1 and W2 (W - big(W), f32):
+// writes x's small plane (xs), a1, h, h's small plane (hs) and a2 (a1, h and a2 saved for the
+// backward), and y, all f32 (B, H), on the tile plan (wg, tbn, a_rows, stages) of
+// ops/resblock.py:f32_plan. Three launches on `stream`; returns the cudaError_t of the launches
+// (0 = ok); does not synchronise.
+int res_block_forward_f32(const void* x, const void* w1, const void* w1s, const void* b1,
+                          const void* w2, const void* w2s, const void* b2, void* xs, void* hs,
+                          void* a1, void* h, void* a2, void* y, int B, int H, int wg, int kw,
+                          int tbn, int a_rows, int chunk, int stages, int a_split, int device,
+                          void* stream) {
   if (bad_shape(B, H)) return (int)cudaErrorInvalidValue;
-  Gemm l1 = {};
-  l1.a = static_cast<const float*>(x);
-  l1.b = static_cast<const float*>(w1);  // B(n, k) = W1[n, k]
-  l1.lda = l1.ldb = H;
-  l1.M = B;
-  l1.N = l1.K = H;
+  EpiF32 l1 = {};
   l1.out0 = static_cast<float*>(a1);
   l1.out1 = static_cast<float*>(h);
+  l1.small = static_cast<float*>(hs);
   l1.bias = static_cast<const float*>(b1);
-  Gemm l2 = l1;
-  l2.a = static_cast<const float*>(h);
-  l2.b = static_cast<const float*>(w2);
+  l1.M = B;
+  l1.N = l1.K = H;
+  l1.a_rows = a_rows;
+  l1.chunk = chunk;
+  l1.stages = stages;
+  EpiF32 l2 = l1;
   l2.out0 = static_cast<float*>(a2);
   l2.out1 = static_cast<float*>(y);
+  l2.small = nullptr;
   l2.bias = static_cast<const float*>(b2);
   l2.aux = static_cast<const float*>(x);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&]() {
-    cudaError_t e = launch<true, true, 3, 3, kFwd1>(l1, s);
-    if (e == cudaSuccess) e = launch<true, true, 3, 3, kFwd2>(l2, s);
+    // A = x (B x H) and B(n, k) = W1[n, k]; then A = h, B = W2: both K-major. Under a_split
+    // neither x's nor h's small plane is made in device memory.
+    cudaError_t e = cudaSuccess;
+    if (a_split) l1.small = nullptr;
+    else e = small_plane(x, xs, static_cast<long long>(B) * H, device, s);
+    if (e == cudaSuccess) e = run_tf32<kFwd1>(wg, kw, tbn, a_split, x, xs, w1, w1s, l1, device, s);
+    if (e == cudaSuccess) e = run_tf32<kFwd2>(wg, kw, tbn, a_split, h, hs, w2, w2s, l2, device, s);
     return e;
   });
+}
+
+// The small plane of v (rows x cols f32): v - big(v), big(v) being v with its low 13 mantissa
+// bits cleared. One launch on `stream`.
+int res_block_small(const void* v, void* small, int rows, int cols, int device, void* stream) {
+  if (rows < 1 || cols < 4 || cols % 4) return (int)cudaErrorInvalidValue;
+  return on_device(device, [&]() {
+    return small_plane(v, small, static_cast<long long>(rows) * cols, device,
+                       static_cast<cudaStream_t>(stream));
+  });
+}
+
+// out (M x N) = a (M x K) b^T (N x K), f32 handed to wgmma as tf32 in one pass (no small
+// terms), on 64 x 64 tiles: what the tensor core makes of raw f32 operands. One launch.
+int res_block_tf32_product(const void* a, const void* b, void* out, int M, int N, int K,
+                           int device, void* stream) {
+  if (M < 1 || N < 64 || N % 64 || K < 32 || K % 32) return (int)cudaErrorInvalidValue;
+  EpiF32 e = {};
+  e.out0 = static_cast<float*>(out);
+  e.M = M;
+  e.N = N;
+  e.K = K;
+  e.a_rows = M >= 64 ? 64 : (M + 7) / 8 * 8;
+  e.chunk = 1;
+  e.stages = 4;
+  return on_device(device, [&]() {
+    return launch_tf32<1, 1, 64, kProduct, false, false>(a, nullptr, b, nullptr, e, device,
+                                               static_cast<cudaStream_t>(stream));
+  });
+}
+
+// A block's dynamic shared memory on the tile plan (wg, tbn, a_rows, chunk, stages) of the
+// three-pass product: what ops/resblock.py:f32_smem_bytes computes.
+int res_block_f32_smem_bytes(int wg, int tbn, int a_rows, int chunk, int stages) {
+  return f32_smem_bytes(wg, tbn, a_rows, chunk, stages, true);
 }
 
 // The f32 policy's backward: from dy and the saved x, W1, W2, a1, h, a2 (all f32) writes dx

@@ -24,6 +24,17 @@ x's from the split kernel (``split_planes``), h's from the forward's first
 product; an f32 gradient enters as two planes, hi and lo (16 significant
 bits). The forward then saves the x and h planes instead of x and h.
 
+Under ``F32`` the forward multiplies in three TF32 passes (~22 significant
+bits per product, never one pass): each operand v is big + small, big =
+``tf32_big(v)`` (v with its low 13 mantissa bits cleared, what the tensor
+core reads of v) and small = ``tf32_small(v)`` (exact), and a product sums
+big.big + small.big + big.small. The kernel reads the f32 x, h and weights
+as they lie; a weight's small plane comes from ``small_plane`` (one cast per
+weight version), x's and h's are made at each call (at one row tile, in the
+kernel's shared memory). ``res_block_forward_tf32``
+is the plain emulation of those numerics, ``f32_plan`` the kernel's tile
+plan. The f32 backward keeps three bf16 terms per operand.
+
 For ``torch.export`` the forward is also a registered op,
 ``links_tpu_torch::res_block_forward`` (``res_block_op``): a traced program
 cannot read a fake tensor's ``data_ptr`` nor branch on its device, so under
@@ -36,7 +47,9 @@ are built at the op's first CUDA call. Eager callers keep the direct call.
 from __future__ import annotations
 
 import ctypes
+import functools
 import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -44,6 +57,19 @@ from links_tpu_torch.core.nn import BF16, F32, Policy, dense, leaky_relu
 
 NEG_SLOPE = 0.01
 _TILE = 64  # the kernels' output tile: the width must be a multiple
+_TF32_BIG = -8192  # 0xFFFFE000 as an int32: a tf32 value's sign, exponent and 10 mantissa bits
+# The f32 forward's output tiles (warpgroups of 64 rows, warpgroups that split K,
+# columns), in the order f32_plan tries them, and its ring's depth limit.
+F32_TILES = ((2, 1, 128), (1, 2, 64), (1, 2, 32), (1, 4, 16), (1, 4, 8))
+F32_MAX_STAGES = 32
+# the kernel's instantiations (csrc/resblock.cu:run_tf32), the (wg, kw, cols,
+# a_split) that f32_plan gives for hidden widths to 4096 and batches to 8192
+F32_KERNELS = frozenset({(2, 1, 128, False), (1, 2, 64, False), (1, 1, 64, False),
+                         (1, 2, 32, False), (1, 2, 32, True), (1, 4, 16, False),
+                         (1, 1, 16, False), (1, 4, 16, True), (1, 4, 8, False), (1, 1, 8, False),
+                         (1, 4, 8, True)})
+F32_CHUNK_BYTES = 32768  # a ring stage holds several K tiles (one TMA box each) up to this
+SMEM_BYTES = 232448  # dynamic shared memory a Hopper block can have (227 KB)
 
 
 def _is_bf16(policy: Policy) -> bool:
@@ -68,6 +94,40 @@ def _dlrelu(v: torch.Tensor) -> torch.Tensor:
     """LeakyReLU's derivative, 1 at exactly 0 (as ``leaky_relu``'s own
     gradient; torch's ``F.leaky_relu`` gives 0.01 there)."""
     return torch.where(v >= 0, 1.0, NEG_SLOPE)
+
+
+def tf32_big(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` with its low 13 mantissa bits cleared: the tf32 value the
+    tensor core reads when handed v."""
+    return (v.view(torch.int32) & _TF32_BIG).view(torch.float32)
+
+
+def tf32_small(v: torch.Tensor) -> torch.Tensor:
+    """v - tf32_big(v), exact in f32, signed as v: tf32_big(v) + tf32_small(v)
+    is v bit for bit (-0 included)."""
+    return torch.copysign(v - tf32_big(v), v)
+
+
+def _dense_tf32(x, w, b, passes: int):
+    """x w^T + b as tf32 products: ``passes`` 3 sums big.big and then
+    small.big + big.small (each small term entering as tf32, as the tensor
+    core truncates it), the f32 forward kernel's numerics; 1 is big.big
+    alone, one TF32 pass."""
+    xb, wb = tf32_big(x), tf32_big(w)
+    out = xb @ wb.T
+    if passes == 3:
+        out = out + (tf32_big(tf32_small(x)) @ wb.T + xb @ tf32_big(tf32_small(w)).T)
+    return out + b
+
+
+def res_block_forward_tf32(x, w1, b1, w2, b2, passes: int = 3):
+    """The plain emulation of the f32 forward kernel's numerics (``passes`` =
+    3), or of one TF32 pass (1): -> (y, a1, h, a2). Under f32 matmuls (TF32
+    off) on either device."""
+    a1 = _dense_tf32(x, w1, b1, passes)
+    h = leaky_relu(a1)
+    a2 = _dense_tf32(h, w2, b2, passes)
+    return leaky_relu(a2) + x, a1, h, a2
 
 
 def res_block_forward_reference(x, w1, b1, w2, b2, policy: Policy):
@@ -112,9 +172,85 @@ def res_block_reference(x, w1, b1, w2, b2, policy: Policy):
                            res_block_backward_reference)
 
 
+class F32Plan(NamedTuple):
+    wg: int          # warpgroups of 64 output rows each
+    kw: int          # warpgroups that split K between them, per 64 rows
+    rows: int        # output tile rows
+    cols: int        # output tile columns (wgmma's n)
+    a_rows: int      # rows of A's TMA box: the tile's, or at one row tile B's rounded to 8
+    chunk: int       # K tiles (32 deep) per ring stage and TMA box
+    stages: int      # the ring's depth
+    a_split: bool    # A's small tiles made in shared memory (one row tile), not read
+    row_tiles: int
+    col_tiles: int
+    grid: int        # blocks of one product, one output tile each
+    smem: int        # dynamic shared memory bytes of a block
+
+
+def f32_stage_bytes(a_rows: int, cols: int, chunk: int) -> int:
+    """One ring stage of the f32 forward: ``chunk`` K tiles of A's master and
+    small planes (a_rows rows of 32 f32) and of B's (cols rows)."""
+    return 2 * chunk * (a_rows + cols) * 128
+
+
+def f32_smem_bytes(wg: int, cols: int, a_rows: int, chunk: int, stages: int) -> int:
+    """A block's dynamic shared memory (the kernel's res_block_f32_smem_bytes):
+    the swizzle's alignment slack, the ring, the rows a 64 x wg-row wgmma
+    reads past the ring's last A tile when A's box is shorter, and a full
+    and an empty barrier per stage."""
+    return (1024 + stages * f32_stage_bytes(a_rows, cols, chunk) + (64 * wg - a_rows) * 128
+            + 16 * stages)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plan(batch: int, hidden: int, sms: int) -> F32Plan:
+    """The f32 forward's tile plan for ``batch`` rows at width ``hidden`` on a
+    card with ``sms`` SMs: the first of ``F32_TILES`` whose grid leaves at
+    most 1/8 of the SMs without a block, else the narrowest (the most
+    blocks); every block owns one output tile and loops over all of K, split
+    over the tile's warpgroups (narrow tiles' wgmmas are short, and one
+    warpgroup's run in order). At one row tile A is a few rows, and there
+    its small tiles are made in shared memory. A ring stage holds as many K
+    tiles (one TMA box per operand) as keep it within F32_CHUNK_BYTES and
+    the ring 2 stages deep per K group, or holding all of K. The ring takes
+    the shared memory of one block per SM, or of two where the grid is
+    larger than the card and half still holds 3 stages and 2 per K group,
+    else (the K split dropped) 3 stages."""
+    if batch < 1 or hidden < _TILE or hidden % _TILE:
+        raise ValueError(f"no f32 plan for batch {batch} at hidden width {hidden}")
+    fill = sms - sms // 8
+    for wg, kw, cols in F32_TILES:
+        row_tiles, col_tiles = -(-batch // (64 * wg)), hidden // cols
+        if hidden % cols == 0 and row_tiles * col_tiles >= fill:
+            break
+    rows, grid = 64 * wg, row_tiles * col_tiles
+    a_rows = rows if row_tiles > 1 else min(rows, -(-batch // 8) * 8)
+    fixed = 1024 + (rows - a_rows) * 128
+    nk = hidden // 32
+    # two blocks of an SM each have half its 228 KB, less 1 KB the card keeps per block
+    pair = (SMEM_BYTES + 1024) // 2 - 1024
+
+    def depth(budget: int, chunk: int) -> int:
+        return min(F32_MAX_STAGES, -(-nk // chunk),
+                   (budget - fixed) // (f32_stage_bytes(a_rows, cols, chunk) + 16))
+
+    for chunk in (8, 4, 2, 1):
+        need = min(2 * kw, -(-nk // chunk))
+        if chunk == 1 or (f32_stage_bytes(a_rows, cols, chunk) <= F32_CHUNK_BYTES
+                          and depth(SMEM_BYTES, chunk) >= need):
+            break
+    stages = depth(SMEM_BYTES, chunk)
+    if grid > sms and depth(pair, chunk) >= 3:
+        stages, kw = depth(pair, chunk), kw if depth(pair, chunk) >= need else 1
+    a_split = wg == 1 and row_tiles == 1 and kw > 1
+    return F32Plan(wg, kw, rows, cols, a_rows, chunk, stages, a_split, row_tiles, col_tiles, grid,
+                   f32_smem_bytes(wg, cols, a_rows, chunk, stages))
+
+
 _LIB = None
-# CUDA kernel launches of one call of the forward and the backward, by policy
-_LAUNCHES = {"forward": {True: 3, False: 2}, "backward": {True: 6, False: 5}}
+# CUDA kernel launches of one call of the forward and the backward, by policy (True: bf16);
+# the f32 forward launches one less where its plan makes A's small tiles in shared memory
+_LAUNCHES = {"forward": {True: 3, False: 3}, "backward": {True: 6, False: 5}}
 
 
 def _lib():
@@ -124,13 +260,17 @@ def _lib():
 
         lib = _build.load("resblock")
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name, pointers in (("res_block_forward_f32", 9), ("res_block_forward_bf16", 10),
-                               ("res_block_backward_f32", 13),
+        for name, pointers in (("res_block_forward_bf16", 10), ("res_block_backward_f32", 13),
                                ("res_block_backward_bf16", 18)):
             getattr(lib, name).argtypes = [p] * pointers + [i] * 3 + [p]
             getattr(lib, name).restype = i
-        lib.res_block_split.argtypes = [p] * 4 + [i] * 3 + [p]
-        lib.res_block_split.restype = i
+        for name, argtypes in (("res_block_forward_f32", [p] * 13 + [i] * 10 + [p]),
+                               ("res_block_split", [p] * 4 + [i] * 3 + [p]),
+                               ("res_block_small", [p] * 2 + [i] * 3 + [p]),
+                               ("res_block_tf32_product", [p] * 3 + [i] * 4 + [p]),
+                               ("res_block_f32_smem_bytes", [i] * 5)):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = i
         lib.res_block_error_string.argtypes = [i]
         lib.res_block_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -169,29 +309,88 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-_PLANES: dict[int, tuple] = {}  # id(weight) -> (weakref, _version, data_ptr, bf16 plane)
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# id(weight) -> (weakref, _version, data_ptr, plane): the bf16 planes and the small planes
+_PLANES: dict[int, tuple] = {}
+_SMALL: dict[int, tuple] = {}
+
+
+def _cached(cache: dict, w: torch.Tensor, make) -> tuple[torch.Tensor, bool]:
+    """``make(w)`` kept in ``cache`` until ``w`` changes in place (an optimizer
+    step, ``load_state_dict``, ``copy_``; each bumps ``w._version``) or dies.
+    A write through ``w.data`` bypasses the version counter: none is made.
+    An inference tensor (the serving path's weights) has no version counter
+    and cannot change outside inference mode: its plane is made once.
+    -> (plane, whether it was made now)."""
+    key = id(w)
+    version = None if w.is_inference() else w._version
+    hit = cache.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == version and hit[2] == w.data_ptr():
+        return hit[3], False
+    plane = make(w.detach())
+    cache[key] = (weakref.ref(w, lambda _, k=key: cache.pop(k, None)), version, w.data_ptr(),
+                  plane)
+    return plane, True
 
 
 def weight_plane(w: torch.Tensor) -> torch.Tensor:
     """The bf16 plane of a weight, ``w.to(torch.bfloat16)``, cast once per
-    version of ``w``: cached until the weight changes in place (an optimizer
-    step, ``load_state_dict``, ``copy_``; each bumps ``w._version``) or dies.
-    A write through ``w.data`` bypasses the version counter: none is made.
-    An inference tensor (the serving path's weights) has no version counter
-    and cannot change outside inference mode: its plane is cast once."""
-    key = id(w)
-    version = None if w.is_inference() else w._version
-    hit = _PLANES.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == version and hit[2] == w.data_ptr():
-        return hit[3]
-    plane = w.detach().to(torch.bfloat16)
-    _PLANES[key] = (weakref.ref(w, lambda _, k=key: _PLANES.pop(k, None)), version,
-                    w.data_ptr(), plane)
-    weight_plane.casts += 1
+    version of ``w`` (see ``_cached``)."""
+    plane, made = _cached(_PLANES, w, lambda t: t.to(torch.bfloat16))
+    weight_plane.casts += made
     return plane
 
 
 weight_plane.casts = 0  # casts made (cache misses)
+
+
+def _small(v: torch.Tensor) -> torch.Tensor:
+    """``tf32_small(v)`` of an f32 array: the small-plane kernel (one launch)
+    for a CUDA tensor, the plain version for a CPU one."""
+    if v.device.type == "cpu":
+        return tf32_small(v)
+    dev, index = _check({"v": (v, tuple(v.shape))}, 1, _TILE)
+    out = torch.empty_like(v)
+    err = _lib().res_block_small(v.data_ptr(), out.data_ptr(), v.numel() // v.shape[-1],
+                                 v.shape[-1], index, _stream(dev))
+    _raise_on(err, "res_block small-plane launch")
+    return out
+
+
+def small_plane(w: torch.Tensor) -> torch.Tensor:
+    """The small plane of an f32 weight, ``tf32_small(w)``, made once per
+    version of ``w`` as ``weight_plane`` casts its bf16 plane."""
+    plane, made = _cached(_SMALL, w, _small)
+    small_plane.casts += made
+    return plane
+
+
+small_plane.casts = 0  # small planes made (cache misses)
+
+
+def tf32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) b^T (b: (N, K)), f32, as one TF32 pass: for CUDA tensors the
+    f32 forward's kernel handed the raw f32 operands (N a multiple of 64),
+    for CPU tensors the plain product of their ``tf32_big`` terms. What the
+    f32 forward's design assumes of the tensor core: the two agree bit for
+    bit on the card when the kernel is handed ``tf32_big(a)``, ``tf32_big(b)``."""
+    if a.device.type == "cpu":
+        return tf32_big(a) @ tf32_big(b).T
+    (m, k), n = a.shape, b.shape[0]
+    dev, index = _check({"a": (a, (m, k)), "b": (b, (n, k))}, 1, _TILE)
+    out = torch.empty(m, n, device=dev)
+    err = _lib().res_block_tf32_product(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+                                        index, _stream(dev))
+    _raise_on(err, "res_block tf32 product launch")
+    tf32_product.launches += 1
+    return out
+
+
+tf32_product.launches = 0
 
 
 def split_planes(v: torch.Tensor, terms: int, mask: torch.Tensor | None = None):
@@ -219,15 +418,17 @@ split_planes.launches = 0
 
 
 def res_block_forward(x, w1, b1, w2, b2, policy: Policy):
-    """The forward kernels (3 launches under BF16, 2 under F32): -> (y, a1, h,
-    a2, x_saved), each (B, H). Under BF16, h and x_saved are the bf16 planes
-    of h and x; under F32, h is f32 and x_saved is x."""
+    """The forward kernels (3 launches, or 2 where the f32 plan makes A's
+    small tiles in shared memory): -> (y, a1, h, a2, x_saved), each (B, H).
+    Under BF16, h and x_saved are the bf16 planes of h and x; under F32, h
+    is f32 and x_saved is x, and the products run on ``f32_plan``'s tiles."""
     if x.dim() != 2:
         raise ValueError(f"res_block kernel: x must be (B, H), got {tuple(x.shape)}")
     n, hid = x.shape
     dev, index = _check({"x": (x, (n, hid)), "w1": (w1, (hid, hid)), "b1": (b1, (hid,)),
                          "w2": (w2, (hid, hid)), "b2": (b2, (hid,))}, n, hid)
     bf16 = _is_bf16(policy)
+    launches = _LAUNCHES["forward"][bf16]
     y, a1, a2 = (torch.empty(n, hid, device=dev) for _ in range(3))
     if bf16:
         x_saved, h = (torch.empty(n, hid, dtype=torch.bfloat16, device=dev) for _ in "xh")
@@ -236,14 +437,21 @@ def res_block_forward(x, w1, b1, w2, b2, policy: Policy):
             weight_plane(w2).data_ptr(), b2.data_ptr(), x_saved.data_ptr(), a1.data_ptr(),
             h.data_ptr(), a2.data_ptr(), y.data_ptr(), n, hid, index, _stream(dev))
     else:
+        p = f32_plan(n, hid, _sms(index))
+        launches -= p.a_split
         x_saved, h = x, torch.empty(n, hid, device=dev)
+        # x's and h's small planes, unless A's small tiles are made in shared memory
+        small = None if p.a_split else torch.empty(2, n, hid, device=dev)
+        xs, hs = (0, 0) if small is None else (small[0].data_ptr(), small[1].data_ptr())
         err = _lib().res_block_forward_f32(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            a1.data_ptr(), h.data_ptr(), a2.data_ptr(), y.data_ptr(), n, hid, index,
-            _stream(dev))
+            x.data_ptr(), w1.data_ptr(), small_plane(w1).data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), small_plane(w2).data_ptr(), b2.data_ptr(), xs, hs, a1.data_ptr(),
+            h.data_ptr(), a2.data_ptr(), y.data_ptr(), n, hid, p.wg, p.kw, p.cols, p.a_rows,
+            p.chunk, p.stages, p.a_split, index, _stream(dev))
     _raise_on(err, "res_block_forward launch")
     res_block_forward.launches += 1
-    res_block_forward.kernel_launches += _LAUNCHES["forward"][bf16]
+    res_block_forward.f32_launches += not bf16
+    res_block_forward.kernel_launches += launches
     return y, a1, h, a2, x_saved
 
 
@@ -286,6 +494,7 @@ def res_block_backward(dy, x, w1, w2, a1, h, a2, policy: Policy):
 
 
 res_block_forward.launches = 0   # calls that launched the forward kernels
+res_block_forward.f32_launches = 0  # those of them under F32 (the tf32 kernel)
 res_block_backward.launches = 0  # calls that launched the backward kernels
 res_block_forward.kernel_launches = 0   # CUDA kernels those calls launched
 res_block_backward.kernel_launches = 0

@@ -10,11 +10,14 @@ kernels). Per run, one JSON line: the training step at batch 256 (bf16
 policy, full-width lifters and flows, random weights from a seed) in ms per
 step on the host clock over 20 steps after warm-up, the card's busy ms and
 kernel launches per step (``torch.profiler`` over 5 steps), the step's ms
-again after that profiler session (it leaves the process slower), and K1 under
+again after that profiler session (it leaves the process slower), K1 under
 bf16 at B = 512 and 4096: forward and backward device ms per call from a
 CUDA graph of the wrapper's calls, eager ms per call (CUDA events around 50
 calls) and the wrapper's host ms per call (the least of 5 runs of 20
-enqueues). The card's name and power limit end each line.
+enqueues), and K1's f32 forward at B = 1, 50, 256 and 4096 the same way,
+with the largest error of each of its outputs y, a1, h, a2 against the plain
+f32 forward (TF32 off), over that output's largest value. The card's name
+and power limit end each line.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ def _one(tree: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from links_tpu_torch.config import LifterTrainConfig, OptimConfig
-    from links_tpu_torch.core.nn import BF16, full_f32_matmuls
+    from links_tpu_torch.core.nn import BF16, F32, full_f32_matmuls
     from links_tpu_torch.flows import Flow
     from links_tpu_torch.models.lifters import Lifter, StackedLifter
     from links_tpu_torch.objectives.lifter import LifterFrozen
@@ -118,23 +121,35 @@ def _one(tree: str) -> dict:
         torch.cuda.synchronize()
         return best
 
-    for rows in (512, 4096):
+    def block_inputs(rows):
         g = torch.Generator().manual_seed(2000 + rows)
         bound = hidden ** -0.5
         w1, w2 = (torch.empty(hidden, hidden).uniform_(-bound, bound, generator=g).cuda()
                   for _ in "12")
         b1, b2 = (torch.empty(hidden).uniform_(-bound, bound, generator=g).cuda() for _ in "12")
         x, dy = (torch.randn(rows, hidden, generator=g).cuda() for _ in "xy")
+        return x, w1, b1, w2, b2, dy
+
+    def timed(name, fn):
+        out[f"{name}_graph_ms"] = events_ms(graphed(fn).replay)
+        out[f"{name}_eager_ms"] = events_ms(fn)
+        out[f"{name}_host_ms"] = host_ms(fn)
+
+    for rows in (512, 4096):
+        x, w1, b1, w2, b2, dy = block_inputs(rows)
         want = K1.res_block_forward_reference(x, w1, b1, w2, b2, BF16)
         # the saved tensors of each version's kernel backward
         saved = (K1.kernel_saved(x, *want[1:], BF16) if hasattr(K1, "kernel_saved")
                  else (x, *want[1:]))
-        for name, fn in (
-                ("fwd", lambda: K1.res_block_forward(x, w1, b1, w2, b2, BF16)),
-                ("bwd", lambda: K1.res_block_backward(dy, saved[0], w1, w2, *saved[1:], BF16))):
-            out[f"{name}{rows}_graph_ms"] = events_ms(graphed(fn).replay)
-            out[f"{name}{rows}_eager_ms"] = events_ms(fn)
-            out[f"{name}{rows}_host_ms"] = host_ms(fn)
+        timed(f"fwd{rows}", lambda: K1.res_block_forward(x, w1, b1, w2, b2, BF16))
+        timed(f"bwd{rows}", lambda: K1.res_block_backward(dy, saved[0], w1, w2, *saved[1:], BF16))
+    for rows in (1, 50, 256, 4096):
+        x, w1, b1, w2, b2, _ = block_inputs(rows)
+        got = K1.res_block_forward(x, w1, b1, w2, b2, F32)
+        want = K1.res_block_forward_reference(x, w1, b1, w2, b2, F32)
+        out[f"f32fwd{rows}_rel_err"] = [float((a - b).abs().max() / b.abs().max())
+                                        for a, b in zip(got, want)]
+        timed(f"f32fwd{rows}", lambda: K1.res_block_forward(x, w1, b1, w2, b2, F32))
     out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True, text=True,
                                  check=True).stdout.strip().splitlines()[0]

@@ -115,9 +115,11 @@ def test_fused_sides_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         K2.fused_sides_forward({**prep, "b_up": prep["b_up"].cpu()}, x, x)
 
 
-# K1 against its plain version, with the tolerances of chip_smoke.py: forward
-# outputs elementwise (sums in another order, f32 operands as three bf16
-# terms, and under bf16 a flipped rounding of h); bf16-policy dx, dW1, dW2
+# K1 against its plain version, with the tolerances of chip_smoke.py: bf16
+# forward outputs elementwise (sums in another order, and a flipped rounding
+# of h); f32 forward outputs within K1_F32_TOL of each one's largest value
+# (three TF32 passes; one pass, the control, is off by ~1e-3); bf16-policy dx,
+# dW1, dW2
 # within one bf16 unit in the last place of the largest value (they are
 # rounded to bf16 after the sum), with fewer than K1_FLIP_SHARE of their
 # elements off by more than K1_FLIP_REL of their own value (rounding g1, g2
@@ -126,6 +128,7 @@ def test_fused_sides_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 # such flips, or f32 sums whose error scales with the partial sums, not with
 # the element).
 K1_TOL = {"rtol": 1e-3, "atol": 1e-3}
+K1_F32_TOL = 1e-5
 K1_BF16_ULP = 2.0 ** -7
 K1_FLIP_REL, K1_FLIP_SHARE = 1e-5, 0.1
 
@@ -137,6 +140,10 @@ def _k1_grad_close(name, got, want, policy):
         assert float((err > K1_FLIP_REL * want.abs()).float().mean()) < K1_FLIP_SHARE, name
     else:
         assert float(err.max()) <= K1_TOL["rtol"] * float(want.abs().max()), name
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
 
 
 def _k1_inputs(batch, hidden, g, device):
@@ -157,13 +164,14 @@ def test_res_block_kernels_match_plain_version(cuda, policy):
         y, a1, h, a2, x_saved = K1.res_block_forward(x, w1, b1, w2, b2, policy)
         want = K1.res_block_forward_reference(x, w1, b1, w2, b2, policy)
         saved = K1.kernel_saved(x, *want[1:], policy)
-        for a, b in zip((y, a1, a2), (want[0], want[1], want[3])):
-            torch.testing.assert_close(a, b, **K1_TOL)
-        assert torch.equal(x_saved, saved[0])
-        if policy is BF16:  # h's bf16 plane: a rounded output
-            _k1_grad_close("dx", h.float(), saved[2].float(), policy)
+        if policy is F32:
+            for a, b in zip((y, a1, h, a2), want):
+                assert _rel_err(a, b) <= K1_F32_TOL
         else:
-            torch.testing.assert_close(h, want[2], **K1_TOL)
+            for a, b in zip((y, a1, a2), (want[0], want[1], want[3])):
+                torch.testing.assert_close(a, b, **K1_TOL)
+            _k1_grad_close("dx", h.float(), saved[2].float(), policy)  # h's plane: rounded
+        assert torch.equal(x_saved, saved[0])
         got = K1.res_block_backward(dy, saved[0], w1, w2, *saved[1:], policy)
         ref = K1.res_block_backward_reference(dy, x, w1, w2, *want[1:], policy)
         torch.cuda.synchronize()
@@ -174,10 +182,15 @@ def test_res_block_kernels_match_plain_version(cuda, policy):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy,launches", [(BF16, (3, 6)), (F32, (2, 5))], ids=["bf16", "f32"])
+@pytest.mark.parametrize("policy,launches", [(BF16, (3, 6)), (F32, (3, 5))], ids=["bf16", "f32"])
 def test_res_block_kernel_launches_per_call(cuda, policy, launches):
+    """3 forward launches, less one where the f32 plan makes A's small tiles
+    in shared memory (one row tile: B = 64 here)."""
     g = torch.Generator().manual_seed(7)
     x, w1, b1, w2, b2, dy = _k1_inputs(64, 256, g, cuda)
+    if policy is F32:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        launches = (launches[0] - K1.f32_plan(64, 256, sms).a_split, launches[1])
     before = (K1.res_block_forward.kernel_launches, K1.res_block_backward.kernel_launches)
     y, a1, h, a2, x_saved = K1.res_block_forward(x, w1, b1, w2, b2, policy)
     K1.res_block_backward(dy, x_saved, w1, w2, a1, h, a2, policy)
@@ -197,6 +210,54 @@ def test_split_kernel_matches_plain_split(cuda, batch):
         want = K1.split_reference(*(t.cpu() if torch.is_tensor(t) else t for t in args))
         assert K1.split_planes.launches == before + 1
         assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 50, 128, 256, 512, 768, 1830, 4096])
+def test_f32_forward_holds_the_f32_bound(cuda, batch):
+    """Every tile of the f32 plan (batches 1 and 50: 64 x 8, K over 4
+    warpgroups; 128: 64 x 16; 256: 64 x 32; 512 and 768: 64 x 64; 1830 and
+    4096: 128 x 128): y, a1, h, a2 within K1_F32_TOL of the largest value,
+    the one-TF32-pass control beyond it, bitwise repeatable."""
+    g = torch.Generator().manual_seed(batch)
+    x, w1, b1, w2, b2, _ = _k1_inputs(batch, 1024, g, cuda)
+    got = K1.res_block_forward(x, w1, b1, w2, b2, F32)
+    again = K1.res_block_forward(x, w1, b1, w2, b2, F32)
+    want = K1.res_block_forward_reference(x, w1, b1, w2, b2, F32)
+    one = K1.res_block_forward_tf32(x, w1, b1, w2, b2, passes=1)
+    for name, a, b, c in zip(("y", "a1", "h", "a2"), got, want, one):
+        assert _rel_err(a, b) <= K1_F32_TOL, name
+        assert _rel_err(c, b) > K1_F32_TOL, name
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 37, 256])
+def test_tf32_pass_reads_raw_f32_as_its_big_term(cuda, batch):
+    """What the f32 forward rests on: one wgmma pass on raw f32 operands is
+    bitwise the pass on their tf32_big values."""
+    g = torch.Generator().manual_seed(batch)
+    x, w1 = _k1_inputs(batch, 1024, g, cuda)[:2]
+    for scale in (1.0, 3e-20, 7e15):
+        raw = K1.tf32_product(x * scale, w1)
+        assert torch.equal(raw, K1.tf32_product(K1.tf32_big(x * scale), K1.tf32_big(w1)))
+
+
+@pytest.mark.cuda
+def test_small_planes_on_the_card(cuda):
+    """The small-plane kernel is bitwise tf32_small; a weight's small plane
+    is made once per version."""
+    g = torch.Generator().manual_seed(9)
+    x, w = _k1_inputs(37, 1024, g, cuda)[:2]
+    assert torch.equal(K1._small(x).cpu(), K1.tf32_small(x.cpu()))
+    w.requires_grad_(True)
+    before = K1.small_plane.casts
+    plane = K1.small_plane(w)
+    assert K1.small_plane(w) is plane and K1.small_plane.casts == before + 1
+    with torch.no_grad():
+        w.add_(1.0)
+    fresh = K1.small_plane(w)
+    assert fresh is not plane and torch.equal(fresh.cpu(), K1.tf32_small(w.detach().cpu()))
 
 
 @pytest.mark.cuda
