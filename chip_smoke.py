@@ -16,18 +16,26 @@ Phases, each fatal on failure:
      its weight-plane cache; K1's f32 forward (three TF32 passes) within
      K1_F32_TOL of its plain version, beyond which a one-pass control lies,
      its small planes bitwise the plain split, and the one-pass tf32 product
-     of raw f32 operands bitwise that of their big terms;
+     of raw f32 operands bitwise that of their big terms; K1's f32 backward
+     (three bf16 terms per operand) within K1_F32_TOL of the plain f32
+     backward or, where that strays from f64 values, of those, beyond which
+     a one-bf16-term and a one-TF32-pass control lie, its three-term split
+     kernel bitwise the plain split and its term planes cached per weight
+     version;
   3. one training step of each stage (1, 2, 3a, 3b, 4) on the card against
      the same step on the CPU (full-width lifters, completers and 8-block
      flows at hidden 1024, batch 64, the same weights and draws), counting
      the residual-block launches of the step and the weight casts of a
-     first and a second step;
+     first and a second step; 3a and stage 4 again under the F32 policy
+     (the trainers' --f32: every K1 call on the f32 routes) within tighter
+     bounds, which the bf16 step's error must exceed;
   4. drive the main paths through their entry points on a synthetic
      corpus, each with the kernels' counts set to 0 just before it and read
      just after: ``links_tpu_torch.cli.lift`` of seeded lifters (--fused,
      --policy bf16, f32); the trainers of stages 1, 2, 3a, 3b and 4, one
      epoch each, each stage reading what the ones before wrote (no flow or
-     lifter is made outside them); then ``lift --model-dir`` of the 3a
+     lifter is made outside them), and one epoch of the 3a trainer under
+     --f32 (every K1 call on the f32 routes); then ``lift --model-dir`` of the 3a
      lifters (--fused, --policy bf16), ``lift --mode leg_torso`` of the 3b
      lifters and ``lift --scenario`` of every occlusion scenario; then, on
      the model directory the trainers wrote, each path with its counts set
@@ -79,7 +87,8 @@ Phases, each fatal on failure:
      ``links_tpu_torch.cli.preprocess`` on a small h5 tree (or exit 2
      without h5py); and the metrics' batched SVD at 500,000 poses, one call
      against chunks;
-  5. time each stage's training step at batch 256, then K2, then the
+  5. time each stage's training step at batch 256 (3a also under F32),
+     then K2, then the
      serving daemon's requests/s and lift's poses/s by serving flag, before
      any torch.profiler session (one often leaves the process slower); then the
      3a and stage-4 steps' profiles, and each kernel, its plain version, a library
@@ -88,7 +97,8 @@ Phases, each fatal on failure:
      their wrapper's calls, as the yardstick is, and eagerly beside it (the
      host's enqueue then sets the pace), with each CUDA kernel's device time
      from torch.profiler (K2: one kernel per call); K1's f32 forward also at
-     the visualised frame and clip (B = 1, 50); last, ``profiling.trace``
+     the visualised frame and clip (B = 1, 50), K1 under F32 at the bf16
+     route's batches; last, ``profiling.trace``
      around one 3a step writes a Chrome trace holding the card's kernels.
 
 Prints the card's name and power limit, one JSON line describing every
@@ -100,6 +110,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import io
 import json
@@ -182,12 +193,21 @@ TOL = 1e-3
 # operands, is off by ~1e-3 of the largest value, and each run checks that
 # a one-pass control computed in PyTorch exceeds the bound). bf16-policy dx,
 # dW1, dW2 are rounded to bf16 after their sum, so a flip there is one bf16
-# unit in the last place: at most 2**-7 of the largest value. The other gradients (bf16 db1, db2, which sum
-# flipped terms over the batch, and every f32-policy gradient, whose sums
-# over up to 4096 rows carry an error of the size of the partial sums, not
-# of the element): 1e-3 of the largest value.
+# unit in the last place: at most 2**-7 of the largest value. bf16 db1 and
+# db2, which sum flipped terms over the batch: 1e-3 of the largest value.
+# The f32 backward's dx, dW1, db1, dW2, db2 (three bf16 terms per operand,
+# f32's 24 bits): within K1_F32_TOL of each one's largest value, against the
+# plain f32 backward (TF32 off) where that lies within K1_F64_GAP of an f64
+# computation of the same gradients, else against the f64 values (the plain
+# f32 dW sums B rows: 1.1e-6 and 1.4e-6 of the largest value at B = 512 and
+# 768, observed on an H100; the kernel sits at <= 3.3e-7 of the f64 values).
+# Each run checks that two controls computed here in PyTorch lie beyond the
+# bound on every gradient that goes through a product (dx, dW1, db1, dW2):
+# one bf16 term per product operand, and one TF32 pass (tf32_big of every
+# operand), both with f32 sums; db2, the plain sum of g2, goes through none.
 K1_TOL = 1e-3
 K1_F32_TOL = 1e-5
+K1_F64_GAP = 1e-6
 K1_BF16_ULP = 2.0 ** -7
 # The ulp bound alone would pass a backward that rounds its f32 gradient
 # operands g1, g2 to one bf16 term (the Pallas kernel's numerics), since that
@@ -212,6 +232,21 @@ K1_BATCHES = (1, 37, 128, 256, 512, 768, 4096)
 # activations and of the rounded gradient products, which the 7-block chains
 # carry on (7.1e-3 observed on an H100 for 3a).
 STEP_RTOL, STEP_ATOL, STEP_GRAD_REL = 1e-3, 1e-4, 2e-2
+# The 3a and stage-4 steps again under the F32 policy (bf16=False: the
+# trainers' --f32), card vs CPU: loss terms within rtol 1e-4 (atol 1e-5 for
+# terms near 0) and each gradient within a relative L2 error of 1e-3, 20x
+# below STEP_GRAD_REL. Both sides multiply at f32 precision (on the card K1
+# within K1_F32_TOL, the other products by cuBLAS with TF32 off), so their
+# activations part by f32 rounding (3a's gradients by 1.3e-6, observed on an
+# H100). The first op that parts them further is lrelu': a pre-activation
+# within that rounding of 0 takes the slope 1 on one side and 0.01 on the
+# other, which moves its row of g1 by 99%. Stage 4 has such: 2 a1 in one of
+# its completers' blocks and 1 a2 in another, whose inputs differ by 4.3e-7
+# of their largest value, put 3.7e-4 on those blocks' gradients (observed on
+# an H100); each run logs the count. The same step's bf16 error (7.1e-3 at
+# 3a, 5.0e-3 at stage 4) must lie beyond the bound.
+STEP_F32_RTOL, STEP_F32_ATOL, STEP_F32_GRAD_REL = 1e-4, 1e-5, 1e-3
+F32_STEP_STAGES = ("3a", "stage 4")
 STAGE_NAMES = ("stage 1", "stage 2", "3a", "3b", "stage 4")
 # Residual-block calls per lifter training step (3a and 3b alike: two
 # lifters, all chain blocks H x H): 7 blocks x 2 lifters x (lift + re-lift)
@@ -235,6 +270,13 @@ K1_PER_STEP = {"stage 1": (0, 0, 0, 0), "stage 2": (0, 0, 0, 0),
                "3a": (K1_FWD_PER_STEP, K1_BWD_PER_STEP, K1_CASTS_PER_STEP, K1_CASTS_PER_STEP),
                "3b": (K1_FWD_PER_STEP, K1_BWD_PER_STEP, K1_CASTS_PER_STEP, K1_CASTS_PER_STEP),
                "stage 4": (*K1_STAGE4, *K1_STAGE4_CASTS)}
+# Under F32 a block's two weights get the forward's small planes and the
+# backward's three-term planes instead of bf16 casts, once per weight version:
+# (small, term) planes of a first and a second step. Stage 4's frozen lifters
+# get small planes on the first step only, and no term planes (no backward).
+K1_F32_PLANES_PER_STEP = {"3a": ((K1_CASTS_PER_STEP,) * 2, (K1_CASTS_PER_STEP,) * 2),
+                          "stage 4": ((K1_STAGE4_CASTS[0], K1_STAGE4_CASTS[1]),
+                                      (K1_STAGE4_CASTS[1], K1_STAGE4_CASTS[1]))}
 # 3a --attention: the attention lifter has 5 blocks (res_common, 2 pose, 2
 # angle): 5 x 2 lifters x (lift + re-lift) forward, all but the re-lift's 2
 # angle blocks per lifter backward, each block's two weights cast once per step
@@ -508,6 +550,16 @@ def phase_build():
              f"({p.wg} x {p.kw} consumer warpgroups: rows x K), grid {p.grid} blocks of {sms} "
              f"SMs per product ({p.row_tiles} x {p.col_tiles}), A box {p.a_rows} rows, "
              f"{p.stages} ring stages of {p.chunk} K tiles; {p.smem} bytes of shared memory")
+    for batch in K1_BATCHES:
+        for what, p in zip(("dh, dx", "dW1, dW2"), K1.f32_bwd_plans(batch, HIDDEN, sms)):
+            smem = K1._lib().res_block_f32_bwd_smem_bytes(p.wg, p.cols, p.tk, p.stages)
+            if smem != p.smem:
+                raise AssertionError(f"K1's f32 backward plan at B={batch} gives {p.smem} bytes "
+                                     f"of shared memory, the kernel {smem}")
+            _log(f"[build] res_block_backward f32 plan B={batch} {what}: tiles {p.rows} x "
+                 f"{p.cols}, K tiles {p.tk} deep split over {p.split} block(s) of a cluster, "
+                 f"grid {p.grid} blocks of {sms} SMs ({p.row_tiles} x {p.col_tiles} x "
+                 f"{p.split}), {p.stages} ring stages; {p.smem} bytes of shared memory")
 
 
 def phase_kernel_vs_plain(prep) -> float:
@@ -637,6 +689,35 @@ def phase_k1_split_and_cache():
     _log(f"[kernel] small planes (v - tf32_big(v)): one per weight version, made again after "
          f"an in-place update; the kernel bitwise tf32_small at B="
          f"{'/'.join(map(str, K1_BATCHES))}")
+    # the f32 backward's three-term planes: the split kernel bitwise the plain
+    # split (x, and g2 = dy * lrelu'(a2)); W's cached per version apart from
+    # the bf16 and small planes
+    for batch in K1_BATCHES:
+        x, w1, b1, w2, b2, dy = _k1_inputs(batch, seed=batch)
+        a2 = K1.res_block_forward_reference(x, w1, b1, w2, b2, F32)[3]
+        for name, args in (("x", (x, 3)), ("g2 = dy * lrelu'(a2)", (dy, 3, a2))):
+            before = K1.split_planes.launches
+            got = K1.split_planes(*args)
+            torch.cuda.synchronize()
+            want = torch.stack(K1.split_reference(*(t.cpu() if torch.is_tensor(t) else t
+                                                    for t in args)))
+            if K1.split_planes.launches != before + 1 or not torch.equal(got.cpu(), want):
+                raise AssertionError(f"three-term split kernel {name} B={batch}: planes differ "
+                                     f"from the plain split")
+    counts = K1.weight_plane.casts, K1.small_plane.casts, K1.term_planes.casts
+    planes = K1.term_planes(w)
+    same = K1.term_planes(w) is planes
+    with torch.no_grad():
+        w.mul_(0.5)
+    fresh = K1.term_planes(w)
+    if not (same and fresh is not planes and torch.equal(
+            fresh.cpu(), torch.stack(K1.split_reference(w.detach().cpu(), 3)))
+            and (K1.weight_plane.casts, K1.small_plane.casts, K1.term_planes.casts)
+            == (counts[0], counts[1], counts[2] + 2)):
+        raise AssertionError("the term-plane cache did not return one set of planes per version")
+    _log(f"[kernel] three-term split kernel: x and g2 (t0, t1, t2) bitwise the plain split at "
+         f"B={'/'.join(map(str, K1_BATCHES))}; W's term planes one per weight version, made "
+         f"again after an in-place update, apart from the bf16 and small planes")
 
 
 def phase_k1_tf32_truncation():
@@ -661,10 +742,46 @@ def phase_k1_tf32_truncation():
          "their tf32_big values (B=1/37/256/4096 against W1, x scaled by 1, 3e-20, 7e15)")
 
 
-def phase_k1_vs_plain() -> tuple[float, float, float]:
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _k1_f32_backward_check(batch: int, got, dy, x, w1, w2, a1, h, a2) -> tuple[list, str]:
+    """The f32 backward's gradients at ``batch`` within K1_F32_TOL of each
+    one's largest value, against the plain f32 backward, or against f64
+    values where that lies more than K1_F64_GAP from them; both controls
+    (one bf16 term, one TF32 pass) beyond the bound on every gradient that
+    goes through a product. -> (max abs errors, the log's text)."""
+    names = ("dx", "dW1", "db1", "dW2", "db2")
+    ref = K1.res_block_backward_reference(dy, x, w1, w2, a1, h, a2, F32)
+    f64 = [t.float() for t in K1.res_block_backward_reference(
+        *(t.double() for t in (dy, x, w1, w2, a1, h, a2)), F32)]
+    gaps = [_rel(r, w) for r, w in zip(ref, f64)]
+    yard = [w if gap > K1_F64_GAP else r for r, w, gap in zip(ref, f64, gaps)]
+    errs = [_k1_check(f"res_block_backward f32 B={batch} {n}", g, w, "f32")
+            for n, g, w in zip(names, got, yard)]
+    controls = {}
+    for method in ("bf16", "tf32"):
+        ctl = K1.res_block_backward_terms(dy, x, w1, w2, a1, h, a2, method)
+        controls[method] = [_rel(c, w) for c, w in zip(ctl, yard)]
+        if min(controls[method][:4]) <= K1_F32_TOL:
+            raise AssertionError(f"the f32 backward's bound does not reject the {method} "
+                                 f"control at B={batch}: dx/dW1/db1/dW2 "
+                                 f"{controls[method][:4]} of the largest values")
+    by_f64 = [n for n, gap in zip(names, gaps) if gap > K1_F64_GAP]
+    against = "f64 for " + "/".join(by_f64) if by_f64 else "the plain f32 backward"
+    text = (f"of the largest value {' '.join(f'{_rel(g, w):.2e}' for g, w in zip(got, yard))} "
+            f"(bound {K1_F32_TOL}; against {against}; the plain f32 backward vs f64 "
+            f"{' '.join(f'{v:.2e}' for v in gaps)}; controls "
+            + "; ".join(f"{m} {' '.join(f'{v:.2e}' for v in c[:4])}" for m, c in controls.items())
+            + ")")
+    return errs, text
+
+
+def phase_k1_vs_plain() -> tuple[float, float, float, float]:
     """-> (worst forward error, worst backward error) over every batch and
-    policy, and the f32 forward's worst error."""
-    worst_f = worst_b = worst_f32 = 0.0
+    policy, the f32 forward's worst error and the f32 backward's."""
+    worst_f = worst_b = worst_f32 = worst_f32_bwd = 0.0
     for policy, pname in ((BF16, "bf16"), (F32, "f32")):
         for batch in K1_BATCHES:
             if policy is F32:
@@ -691,16 +808,19 @@ def phase_k1_vs_plain() -> tuple[float, float, float]:
             torch.cuda.synchronize()
             bwd2 = K1.res_block_backward(dy, xs, w1, w2, a1, hs, a2, policy)
             torch.cuda.synchronize()
-            ref = K1.res_block_backward_reference(dy, x, w1, w2, *want[1:], policy)
-            errs_b = [_k1_check(f"res_block_backward {pname} B={batch} {n}", g, w,
-                                "ulp" if policy is BF16 and n in ("dx", "dW1", "dW2")
-                                else "scale")
-                      for n, g, w in zip(("dx", "dW1", "db1", "dW2", "db2"), bwd, ref)]
+            if policy is F32:
+                errs_b, f32_text = _k1_f32_backward_check(batch, bwd, dy, x, w1, w2, *want[1:])
+                worst_f32_bwd = max(worst_f32_bwd, *errs_b)
+            else:
+                ref = K1.res_block_backward_reference(dy, x, w1, w2, *want[1:], policy)
+                errs_b = [_k1_check(f"res_block_backward {pname} B={batch} {n}", g, w,
+                                    "ulp" if n in ("dx", "dW1", "dW2") else "scale")
+                          for n, g, w in zip(("dx", "dW1", "db1", "dW2", "db2"), bwd, ref)]
             if not (all(torch.equal(a, b) for a, b in zip(fwd, fwd2))
                     and all(torch.equal(a, b) for a, b in zip(bwd, bwd2))):
                 raise AssertionError(f"res_block kernels are not repeatable at {pname} B={batch}")
             worst_f, worst_b = max(worst_f, *errs_f), max(worst_b, *errs_b)
-            flips = ""
+            flips = f"; {f32_text}" if policy is F32 else ""
             if policy is BF16:
                 rounded = (ref[0], ref[1], ref[3])
                 kernel = [_flip_share(g, w) for g, w in zip((bwd[0], bwd[1], bwd[3]), rounded)]
@@ -717,7 +837,7 @@ def phase_k1_vs_plain() -> tuple[float, float, float]:
                  f"{' '.join(f'{e:.2e}' for e in errs_f)}; backward "
                  f"dx/dW1/db1/dW2/db2 {' '.join(f'{e:.2e}' for e in errs_b)}{flips}; two "
                  f"runs bitwise equal")
-    return max(worst_f, worst_f32), worst_b, worst_f32
+    return max(worst_f, worst_f32), worst_b, worst_f32, worst_f32_bwd
 
 
 def _synthetic_batch(n: int, seed: int) -> torch.Tensor:
@@ -798,72 +918,144 @@ def _to(draws, device):
 def _reset_counts():
     K2.fused_sides_forward.launches = 0
     K1.res_block_forward.launches = K1.res_block_backward.launches = 0
-    K1.res_block_forward.f32_launches = 0
+    K1.res_block_forward.f32_launches = K1.res_block_backward.f32_launches = 0
 
 
 def _counts() -> dict:
     """Calls that launched each kernel; res_block_forward_f32 counts the f32
-    forward's (the tf32 route), which res_block_forward counts too."""
+    forward's (the tf32 route) and res_block_backward_f32 the f32 backward's
+    (the three-term route), which res_block_forward and res_block_backward
+    count too."""
     return {"fused_sides_forward": K2.fused_sides_forward.launches,
             "res_block_forward": K1.res_block_forward.launches,
             "res_block_forward_f32": K1.res_block_forward.f32_launches,
-            "res_block_backward": K1.res_block_backward.launches}
+            "res_block_backward": K1.res_block_backward.launches,
+            "res_block_backward_f32": K1.res_block_backward.f32_launches}
 
 
-def phase_step_card_vs_cpu(name: str) -> tuple[int, int]:
-    """One training step of stage ``name`` (bf16 policy) on the card and on
-    the CPU from the same weights, batch and draws; on the card the weight
-    casts of a second gradient after the update, too. -> the card's
-    (forward, backward) K1 launches."""
+def _plane_counts(bf16: bool) -> tuple:
+    """The weight planes made so far: bf16 casts under BF16; under F32 the
+    forward's small planes and the backward's three-term planes."""
+    return ((K1.weight_plane.casts,) if bf16
+            else (K1.small_plane.casts, K1.term_planes.casts))
+
+
+def _reset_planes():
+    K1.weight_plane.casts = K1.small_plane.casts = K1.term_planes.casts = 0
+
+
+@contextlib.contextmanager
+def _k1_signs(into: list):
+    """Record, for every K1 forward call inside the context (the card's
+    kernels or the CPU's plain forward), the signs of its pre-activations a1
+    and a2: where each takes lrelu's slope 1 and where 0.01."""
+    forward = K1._ResBlock.forward
+
+    def recording(ctx, x, w1, b1, w2, b2, policy, fwd, bwd):
+        def fwd_signs(*args):
+            out = fwd(*args)
+            into.append(((out[1] >= 0).cpu(), (out[3] >= 0).cpu()))
+            return out
+
+        return forward(ctx, x, w1, b1, w2, b2, policy, fwd_signs, bwd)
+
+    K1._ResBlock.forward = staticmethod(recording)
+    try:
+        yield
+    finally:
+        K1._ResBlock.forward = staticmethod(forward)
+
+
+def _lrelu_flips(cpu: list, card: list) -> tuple[int, int]:
+    """Of the K1 calls recorded on the CPU and on the card: the pre-activations
+    whose lrelu' slope differs between the two, and the calls holding one."""
+    flips = [sum(int((c != g).sum()) for c, g in zip(sc, sg)) for sc, sg in zip(cpu, card)]
+    return sum(flips), sum(map(bool, flips))
+
+
+def phase_step_card_vs_cpu(name: str, bf16: bool = True,
+                           control: float | None = None) -> tuple[tuple[int, int], float]:
+    """One training step of stage ``name`` (bf16 policy, or with ``bf16``
+    False the F32 policy of the trainers' --f32) on the card and on the CPU
+    from the same weights, batch and draws; on the card the weight planes of
+    a second gradient after the update, too. Under F32 every K1 call must
+    take the f32 routes, and ``control`` (the bf16 step's own gradient
+    error) must lie beyond the f32 gradient bound. -> the card's (forward,
+    backward) K1 launches and the worst gradient rel L2 error."""
     stage = _stage(name, seed=1, batch=STEP_CHECK_BATCH)
+    if not bf16:
+        stage = stage._replace(cfg=dataclasses.replace(stage.cfg, bf16=False))
+    rtol, atol, grad_rel = ((STEP_RTOL, STEP_ATOL, STEP_GRAD_REL) if bf16
+                            else (STEP_F32_RTOL, STEP_F32_ATOL, STEP_F32_GRAD_REL))
+    label = name if bf16 else f"{name} (F32)"
     batch = _synthetic_batch(STEP_CHECK_BATCH, seed=7)
     draws = stage.draw(torch.Generator().manual_seed(8), STEP_CHECK_BATCH, "cpu")
-    out = {}
+    out, signs = {}, {}
     for dev in ("cpu", "cuda"):
         model = copy.deepcopy(stage.model).to(dev)
         grads_fn = stage.grads(tuple(copy.deepcopy(f).to(dev) for f in stage.frozen), stage.cfg)
         _reset_counts()
         K1.res_block_forward.kernel_launches = K1.res_block_backward.kernel_launches = 0
-        K1.weight_plane.casts = 0
-        aux, grads = grads_fn(model, batch.to(dev), _to(draws, dev))
+        _reset_planes()
+        signs[dev] = []
+        with _k1_signs(signs[dev]) if not bf16 else contextlib.nullcontext():
+            aux, grads = grads_fn(model, batch.to(dev), _to(draws, dev))
         if dev == "cuda":
             torch.cuda.synchronize()
+            counts = _counts()
             launches = (K1.res_block_forward.launches, K1.res_block_backward.launches)
             per_call = (K1.res_block_forward.kernel_launches / max(launches[0], 1),
                         K1.res_block_backward.kernel_launches / max(launches[1], 1))
-            casts = K1.weight_plane.casts
+            planes = _plane_counts(bf16)
         Adam(model.parameters(), stage.cfg.optim, steps_per_epoch=40).step(grads)
         out[dev] = ({k: float(v) for k, v in aux.items()}, [t.cpu() for t in grads],
                     [p.detach().cpu() for p in model.parameters()])
         if dev == "cuda":
-            K1.weight_plane.casts = 0
+            _reset_planes()
             grads_fn(model, batch.to(dev), _to(draws, dev))
             torch.cuda.synchronize()
-            casts = (casts, K1.weight_plane.casts)
-    want = K1_PER_STEP[name]
-    if (*launches, *casts) != want:
-        raise AssertionError(f"one {name} step launched the residual-block kernels {launches} "
-                             f"times with {casts} weight casts (first, second step), expected "
-                             f"{want}")
+            planes = (planes, _plane_counts(bf16))
+    want = K1_PER_STEP[name][:2]
+    want_planes = (tuple((c,) for c in K1_PER_STEP[name][2:]) if bf16
+                   else K1_F32_PLANES_PER_STEP[name])
+    f32 = (counts["res_block_forward_f32"], counts["res_block_backward_f32"])
+    if launches != want or planes != want_planes or f32 != ((0, 0) if bf16 else launches):
+        raise AssertionError(f"one {label} step launched the residual-block kernels {launches} "
+                             f"times ({f32} on the f32 routes) with weight planes {planes} "
+                             f"(first, second step), expected {want} and {want_planes}")
     (aux_c, grads_c, params_c), (aux_g, grads_g, params_g) = out["cpu"], out["cuda"]
     for k, v in aux_c.items():
-        if not abs(aux_g[k] - v) <= STEP_ATOL + STEP_RTOL * abs(v):
-            raise AssertionError(f"{name} step {k}: card {aux_g[k]:.6g} vs CPU {v:.6g}")
+        if not abs(aux_g[k] - v) <= atol + rtol * abs(v):
+            raise AssertionError(f"{label} step {k}: card {aux_g[k]:.6g} vs CPU {v:.6g}")
     rel = [float((a - b).norm() / b.norm().clamp_min(1e-12)) for a, b in zip(grads_g, grads_c)]
-    if max(rel) > STEP_GRAD_REL:
-        raise AssertionError(f"{name} step gradients: relative L2 error {max(rel):.3e}")
+    if max(rel) > grad_rel:
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        raise AssertionError(f"{label} step gradients: relative L2 error {max(rel):.3e} "
+                             f"(tensor {worst} of {len(rel)})")
+    if control is not None and control <= grad_rel:
+        raise AssertionError(f"{label} step: the bf16 step's gradient error {control:.3e} "
+                             f"does not exceed the f32 bound {grad_rel}")
     upd = max(float((a - b).abs().max()) for a, b in zip(params_g, params_c))
     if upd > 2 * stage.cfg.optim.learning_rate:
-        raise AssertionError(f"{name} step update: card and CPU params differ by {upd:.3e}")
-    _log(f"[step] {name} card vs CPU, batch {STEP_CHECK_BATCH}: loss {aux_g['loss']:.6f} vs "
+        raise AssertionError(f"{label} step update: card and CPU params differ by {upd:.3e}")
+    what = "weight casts" if bf16 else "(small, term) planes"
+    flips = ""
+    if not bf16:
+        n, calls = _lrelu_flips(signs["cpu"], signs["cuda"])
+        flips = (f"; lrelu' differs card vs CPU at {n} K1 pre-activations in {calls} of "
+                 f"{len(signs['cpu'])} calls")
+    _log(f"[step] {label} card vs CPU, batch {STEP_CHECK_BATCH}: loss {aux_g['loss']:.6f} vs "
          f"{aux_c['loss']:.6f}, worst loss term rel err "
          f"{max(abs(aux_g[k] - v) / max(abs(v), 1e-12) for k, v in aux_c.items()):.2e} "
-         f"(bound rtol {STEP_RTOL}, atol {STEP_ATOL}), worst gradient rel L2 err "
-         f"{max(rel):.2e} over {len(rel)} tensors (bound {STEP_GRAD_REL}), params after Adam "
-         f"within {upd:.2e} (bound {2 * stage.cfg.optim.learning_rate:.1e}); K1 calls "
-         f"{launches[0]} forward + {launches[1]} backward, {per_call[0]:.0f} + {per_call[1]:.0f} "
-         f"CUDA launches per call, {casts[0]} weight casts ({casts[1]} in a second step)")
-    return launches
+         f"(bound rtol {rtol}, atol {atol}), worst gradient rel L2 err "
+         f"{max(rel):.2e} over {len(rel)} tensors (bound {grad_rel}"
+         + ("" if control is None else f"; the bf16 step's {control:.2e} lies beyond it")
+         + f"), params after Adam within {upd:.2e} (bound "
+         f"{2 * stage.cfg.optim.learning_rate:.1e}); K1 calls {launches[0]} forward + "
+         f"{launches[1]} backward ({f32[0]} + {f32[1]} on the f32 routes), {per_call[0]:.0f} + "
+         f"{per_call[1]:.0f} CUDA launches per call, {what} {planes[0]} ({planes[1]} in a "
+         f"second step){flips}")
+    return launches, max(rel)
 
 
 def _train(module, common: list, name: str):
@@ -1172,7 +1364,8 @@ def phase_data_parallel(data: Path, models: Path, tmp: Path, main_3a: dict) -> d
     SECONDS["data parallel: 2 gloo ranks"] = time.perf_counter() - t0
     ranks = [torch.load(tmp / f"dp_rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
     want = {"res_block_forward": DP_STEPS * K1_FWD_PER_STEP, "res_block_forward_f32": 0,
-            "res_block_backward": DP_STEPS * K1_BWD_PER_STEP, "fused_sides_forward": 0}
+            "res_block_backward": DP_STEPS * K1_BWD_PER_STEP, "res_block_backward_f32": 0,
+            "fused_sides_forward": 0}
     for r, got in enumerate(ranks):
         if got["counts"] != want or one["counts"] != want:
             raise AssertionError(f"rank {r}: K1 calls in {DP_STEPS} 3a steps {got['counts']} "
@@ -1311,7 +1504,8 @@ def phase_zero(tmp: Path) -> dict:
     SECONDS["zero: 2 gloo ranks"] = time.perf_counter() - t0
     ranks = [torch.load(tmp / f"zero_rank{r}.pt", weights_only=False) for r in range(ZERO_RANKS)]
     per_step = {"res_block_forward": K1_FWD_PER_STEP, "res_block_backward": K1_BWD_PER_STEP,
-                "res_block_forward_f32": 0, "fused_sides_forward": 0}
+                "res_block_forward_f32": 0, "res_block_backward_f32": 0,
+                "fused_sides_forward": 0}
     want = {k: DP_STEPS * v for k, v in per_step.items()}
     size = sum(p.numel() for p in _stage("3a", seed=3, batch=MAIN_BATCH).model.parameters())
     flat = torch.cat([got["shard"] for got in ranks])
@@ -1389,7 +1583,7 @@ def phase_tp(tmp: Path) -> dict:
     one = _one_process_3a()
     counts = {}
     zero = {"res_block_forward": 0, "res_block_forward_f32": 0, "res_block_backward": 0,
-            "fused_sides_forward": 0}
+            "res_block_backward_f32": 0, "fused_sides_forward": 0}
     for mesh in TP_MESHES:
         world = mesh[0] * mesh[1]
         t0 = time.perf_counter()
@@ -1499,10 +1693,12 @@ def phase_pp(tmp: Path) -> dict:
     for name in ("f32", "bf16"):
         f32 = name == "f32"
         want_one = {"res_block_forward": PP_DEPTH, "res_block_forward_f32": PP_DEPTH * f32,
-                    "res_block_backward": PP_DEPTH, "fused_sides_forward": 0}
+                    "res_block_backward": PP_DEPTH, "res_block_backward_f32": PP_DEPTH * f32,
+                    "fused_sides_forward": 0}
         want = {"res_block_forward": PP_MICRO * per,
                 "res_block_forward_f32": PP_MICRO * per * f32,
-                "res_block_backward": PP_MICRO * per, "fused_sides_forward": 0}
+                "res_block_backward": PP_MICRO * per,
+                "res_block_backward_f32": PP_MICRO * per * f32, "fused_sides_forward": 0}
         if one[name]["counts"] != want_one:
             raise AssertionError(f"sequential trunk {name}: K1 calls {one[name]['counts']}, "
                                  f"expected {want_one}")
@@ -1536,6 +1732,36 @@ def phase_pp(tmp: Path) -> dict:
         counts[f"pp: trunk, {PP_STAGES} stages x {PP_MICRO} microbatches, {name}"] = {
             k: sum(got[name]["counts"][k] for got in ranks) for k in want}
     return counts
+
+
+def phase_f32_epoch(data: Path, models: Path, tmp: Path, bf16_summary: dict,
+                    bf16_counts: dict) -> dict:
+    """One epoch of ``train_left_right_lifter --f32`` through its entry point
+    on the main path's corpus (40 steps of 256), in a directory holding the
+    main path's flows: finite losses; every K1 call on the f32 routes, 28
+    forward and 22 backward per step plus the validation lifts' forward
+    calls (as many as the bf16 epoch's, which run f32 too); its poses/s
+    beside the bf16 epoch's. -> counts by path."""
+    ws = tmp / "f32_epoch"
+    ws.mkdir()
+    for f in ("full_flow.pt", "flow_left.pt", "flow_right.pt"):
+        shutil.copy2(models / f, ws / f)
+    common = ["--data", str(data), "--batch-size", str(MAIN_BATCH), "--device", "cuda",
+              "--model-dir", str(ws), "--f32"]
+    path = "3a --f32"
+    _, summary, counts = _train(train_cli, common, path)
+    n_steps = 5 * TRAIN_POSES // MAIN_BATCH
+    fwd = n_steps * K1_FWD_PER_STEP + bf16_counts["res_block_forward_f32"]
+    bwd = n_steps * K1_BWD_PER_STEP
+    want = {"fused_sides_forward": 0, "res_block_forward": fwd, "res_block_forward_f32": fwd,
+            "res_block_backward": bwd, "res_block_backward_f32": bwd}
+    if counts != want:
+        raise AssertionError(f"{path}: K1 calls {counts}, expected {want}")
+    _log(f"[main] {path}: {n_steps} steps, losses finite; K1 calls {fwd} forward ({n_steps} x "
+         f"{K1_FWD_PER_STEP} + {bf16_counts['res_block_forward_f32']} validating) + {bwd} "
+         f"backward, all on the f32 routes; {summary['poses_per_sec']} poses/s against the bf16 "
+         f"epoch's {bf16_summary['poses_per_sec']} (host clock, one epoch each)")
+    return {path: counts}
 
 
 def _eval_args(data: Path, models: Path, *flags) -> list:
@@ -2651,8 +2877,9 @@ def phase_k1_times(smi):
     """K1 forward and backward per call under the bf16 policy at the batches
     of the training steps (stage 4's frozen lifters 256, the lifter steps 2 x
     256, stage 4's completers 3 x 256) and the validation batch; the f32
-    policy at the serving batch (lift, serve and the artifact run chunks of
-    256) and the validation batch (the validation lifts run f32); the f32
+    policy at the same batches (256 is also the serving batch: lift, serve
+    and the artifact run chunks of 256; --f32 steps run 512 and 768; the
+    validation lifts run f32 at 4096); the f32
     forward alone at the visualised frame (B = 1) and clip (VIZ_FRAMES). The
     kernels run with a warm weight-plane cache; the cast of one weight is
     timed beside them. The kernel's graph and eager times and the library's
@@ -2666,8 +2893,9 @@ def phase_k1_times(smi):
     both = ("forward", "backward")
     for batch, policy, pname, directions in (
             (256, BF16, "bf16", both), (512, BF16, "bf16", both), (768, BF16, "bf16", both),
-            (4096, BF16, "bf16", both), (256, F32, "f32", both), (4096, F32, "f32", both),
-            (1, F32, "f32", ("forward",)), (VIZ_FRAMES, F32, "f32", ("forward",))):
+            (4096, BF16, "bf16", both), (256, F32, "f32", both), (512, F32, "f32", both),
+            (768, F32, "f32", both), (4096, F32, "f32", both), (1, F32, "f32", ("forward",)),
+            (VIZ_FRAMES, F32, "f32", ("forward",))):
         x, w1, b1, w2, b2, dy = _k1_inputs(batch, seed=2000 + batch)
         plain_saved = K1.res_block_forward_reference(x, w1, b1, w2, b2, policy)[1:]
         xs, a1, hs, a2 = K1.kernel_saved(x, *plain_saved, policy)
@@ -2714,14 +2942,17 @@ def phase_k1_times(smi):
 
 def phase_step_times(smi):
     """The training step of each stage at batch 256 (bf16 policy, the
-    trainers' defaults), after warm-up: device ms (CUDA events) and host ms
+    trainers' defaults; 3a also under F32, --f32), after warm-up: device ms
+    (CUDA events) and host ms
     per step. It runs before any other phase opens torch.profiler or
     captures a CUDA graph, so that it times the steps as the trainers run
     them. -> ({stage: (device ms, host ms)}, {stage: what phase_step_profile
     needs} for 3a and stage 4)."""
     rows, profiles = {}, {}
-    for name in STAGE_NAMES:
-        stage = _stage(name, seed=4, batch=MAIN_BATCH)
+    for name in (*STAGE_NAMES, "3a f32"):
+        stage = _stage(name.removesuffix(" f32"), seed=4, batch=MAIN_BATCH)
+        if name.endswith(" f32"):
+            stage = stage._replace(cfg=dataclasses.replace(stage.cfg, bf16=False))
         model = stage.model.cuda()
         frozen = tuple(f.cuda() for f in stage.frozen)
         state = steps.TrainState(model, Adam(model.parameters(), stage.cfg.optim,
@@ -2831,12 +3062,18 @@ def main() -> int:
     _timed("K1 split and cache", phase_k1_split_and_cache)
     _timed("K1 tf32 truncation", phase_k1_tf32_truncation)
     k1_err = _timed("K1 vs plain", phase_k1_vs_plain)
+    bf16_rel = {}
     for name in STAGE_NAMES:
-        _timed(f"step card vs CPU {name}", phase_step_card_vs_cpu, name)
+        _, bf16_rel[name] = _timed(f"step card vs CPU {name}", phase_step_card_vs_cpu, name)
+    for name in F32_STEP_STAGES:
+        _timed(f"step card vs CPU {name} f32", phase_step_card_vs_cpu, name, False,
+               bf16_rel[name])
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         counts, summaries = _timed("main path", phase_main_path, stacked, tmp)
         data, models = tmp / "synthetic.pkl", tmp / "models"
+        counts.update(_timed("3a --f32 epoch", phase_f32_epoch, data, models, tmp,
+                             summaries["3a"], counts["3a"]))
         counts.update(_timed("data parallel", phase_data_parallel, data, models, tmp,
                              summaries["3a"]))
         counts.update(_timed("zero", phase_zero, tmp))
@@ -2901,6 +3138,9 @@ def main() -> int:
         {"name": "res_block_backward", "route": "cuda", "source": src + "resblock.cu",
          "replaces": "links_tpu/experimental/pallas_resblock.py:69", "max_abs_err": k1_err[1],
          **k1_rows[512, "bf16", "backward"]},
+        {"name": "res_block_backward_f32", "route": "cuda", "source": src + "resblock.cu",
+         "replaces": "links_tpu/experimental/pallas_resblock.py:69", "max_abs_err": k1_err[3],
+         **k1_rows[512, "f32", "backward"]},
     ]
     for k in kernels:  # launches: the main paths' total, and path by path
         by_path = {path: c[k["name"]] for path, c in counts.items() if c[k["name"]]}

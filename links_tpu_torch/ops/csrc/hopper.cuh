@@ -65,12 +65,13 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// A wgmma shared-memory descriptor for a tile in the 128-byte swizzle: start address, leading
-// and stride byte offsets (16-byte units), layout type 1 (128B).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// A wgmma shared-memory descriptor for a swizzled tile: start address, leading and stride byte
+// offsets (16-byte units), layout type `swizzle` (1: the 128-byte swizzle, 2: the 64-byte one).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t swizzle = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (swizzle << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -91,70 +92,75 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 // d (m64 x n) += A (64 x 16) B (16 x n)^T, bf16 from shared memory; TA / TB: the operand is
-// contiguous along M / N (wgmma's transpose bits) instead of along K.
+// contiguous along M / N (wgmma's transpose bits) instead of along K. accumulate = 0 overwrites
+// d (scale-d = 0), as wgmma_tf32's.
 template <int N, int TA, int TB>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db);
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                      int accumulate = 1);
 
-#define K1_WGMMA_64(TA, TB)                                                                     \
-  template <>                                                                                   \
-  __device__ __forceinline__ void wgmma<64, TA, TB>(float(&d)[32], uint64_t da, uint64_t db) { \
-    asm volatile(                                                                               \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                            \
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                                 \
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "                                                     \
-        "%8, %9, %10, %11, %12, %13, %14, %15, "                                                \
-        "%16, %17, %18, %19, %20, %21, %22, %23, "                                              \
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "                                             \
-        "%32, %33, p, 1, 1, %35, %36;\n}\n"                                                     \
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),         \
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
-          "+f"(d[31])                                                                           \
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));                                          \
+#define K1_WGMMA_64(TA, TB)                                                                   \
+  template <>                                                                                 \
+  __device__ __forceinline__ void wgmma<64, TA, TB>(float(&d)[32], uint64_t da, uint64_t db,  \
+                                                        int accumulate) {                     \
+    asm volatile(                                                                             \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                          \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                               \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "                                                   \
+        "%8, %9, %10, %11, %12, %13, %14, %15, "                                              \
+        "%16, %17, %18, %19, %20, %21, %22, %23, "                                            \
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "                                           \
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"                                                   \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+          "+f"(d[31])                                                                         \
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));                               \
   }
 
-#define K1_WGMMA_128(TA, TB)                                                                     \
-  template <>                                                                                    \
-  __device__ __forceinline__ void wgmma<128, TA, TB>(float(&d)[64], uint64_t da, uint64_t db) { \
-    asm volatile(                                                                                \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                             \
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                                 \
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "                                                      \
-        "%8, %9, %10, %11, %12, %13, %14, %15, "                                                 \
-        "%16, %17, %18, %19, %20, %21, %22, %23, "                                               \
-        "%24, %25, %26, %27, %28, %29, %30, %31, "                                               \
-        "%32, %33, %34, %35, %36, %37, %38, %39, "                                               \
-        "%40, %41, %42, %43, %44, %45, %46, %47, "                                               \
-        "%48, %49, %50, %51, %52, %53, %54, %55, "                                               \
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "                                              \
-        "%64, %65, p, 1, 1, %67, %68;\n}\n"                                                      \
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),             \
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),          \
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),          \
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
-          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),          \
-          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),          \
-          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),          \
-          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),          \
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),          \
-          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                                                  \
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));                                           \
+#define K1_WGMMA_128(TA, TB)                                                                  \
+  template <>                                                                                 \
+  __device__ __forceinline__ void wgmma<128, TA, TB>(float(&d)[64], uint64_t da, uint64_t db, \
+                                                         int accumulate) {                    \
+    asm volatile(                                                                             \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                          \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                              \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "                                                   \
+        "%8, %9, %10, %11, %12, %13, %14, %15, "                                              \
+        "%16, %17, %18, %19, %20, %21, %22, %23, "                                            \
+        "%24, %25, %26, %27, %28, %29, %30, %31, "                                            \
+        "%32, %33, %34, %35, %36, %37, %38, %39, "                                            \
+        "%40, %41, %42, %43, %44, %45, %46, %47, "                                            \
+        "%48, %49, %50, %51, %52, %53, %54, %55, "                                            \
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "                                           \
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"                                                   \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),       \
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),       \
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),       \
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                                               \
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));                               \
   }
 
-#define HOPPER_WGMMA_16(TA, TB)                                                                 \
-  template <>                                                                                   \
-  __device__ __forceinline__ void wgmma<16, TA, TB>(float(&d)[8], uint64_t da, uint64_t db) {  \
-    asm volatile(                                                                               \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                                             \
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "                                 \
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "                                                    \
-        "%8, %9, p, 1, 1, %11, %12;\n}\n"                                                      \
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
-          "+f"(d[7])                                                                            \
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));                                          \
+#define HOPPER_WGMMA_16(TA, TB)                                                               \
+  template <>                                                                                 \
+  __device__ __forceinline__ void wgmma<16, TA, TB>(float(&d)[8], uint64_t da, uint64_t db,   \
+                                                       int accumulate) {                      \
+    asm volatile(                                                                             \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                                          \
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "                               \
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "                                                  \
+        "%8, %9, p, 1, 1, %11, %12;\n}\n"                                                     \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+          "+f"(d[7])                                                                          \
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));                               \
   }
 
 HOPPER_WGMMA_16(0, 0)
@@ -293,31 +299,32 @@ EncodeTiled encoder() {
 
 struct MapKey {
   const void* plane;
-  int rows, cols, box_rows, chunk;
+  int rows, cols, box_rows, chunk, box_cols;
   bool operator==(const MapKey& o) const {
     return plane == o.plane && rows == o.rows && cols == o.cols && box_rows == o.box_rows &&
-           chunk == o.chunk;
+           chunk == o.chunk && box_cols == o.box_cols;
   }
 };
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
     return std::hash<const void*>()(k.plane) ^ (static_cast<size_t>(k.rows) << 20) ^
            (static_cast<size_t>(k.cols) << 40) ^ static_cast<size_t>(k.box_rows) ^
-           (static_cast<size_t>(k.chunk) << 56);
+           (static_cast<size_t>(k.chunk) << 56) ^ (static_cast<size_t>(k.box_cols) << 10);
   }
 };
 
-// The map of a row-major plane (rows x cols), in the 128-byte swizzle: of bf16 (chunk = 0) in 2D
-// boxes of 64 columns x box_rows rows; of f32 (chunk >= 1) viewed as (32 columns, rows, cols / 32
-// K tiles), in 3D boxes of 32 x box_rows x chunk, which land as `chunk` consecutive K tiles of
-// box_rows rows of 128 bytes. What lies outside the plane reads as zeros. A map is a function of
-// these five values alone, so maps are kept by them: the caching allocator hands a training
-// step the same addresses step after step, and an encode costs the host more than a launch.
+// The map of a row-major plane (rows x cols): of bf16 (chunk = 0) in 2D boxes of box_cols (64,
+// in the 128-byte swizzle, or 32, in the 64-byte one) columns x box_rows rows; of f32 (chunk >=
+// 1) viewed as (32 columns, rows, cols / 32 K tiles), in 3D boxes of 32 x box_rows x chunk in the
+// 128-byte swizzle, which land as `chunk` consecutive K tiles of box_rows rows of 128 bytes. What
+// lies outside the plane reads as zeros. A map is a function of these six values alone, so maps
+// are kept by them: the caching allocator hands a training step the same addresses step after
+// step, and an encode costs the host more than a launch.
 cudaError_t plane_map(CUtensorMap* map, const void* plane, int rows, int cols, int box_rows,
-                      int chunk = 0) {
+                      int chunk = 0, int box_cols = 64) {
   static std::mutex mutex;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
-  const MapKey key = {plane, rows, cols, box_rows, chunk};
+  const MapKey key = {plane, rows, cols, box_rows, chunk, box_cols};
   {
     std::lock_guard<std::mutex> lock(mutex);
     const auto hit = maps.find(key);
@@ -332,14 +339,16 @@ cudaError_t plane_map(CUtensorMap* map, const void* plane, int rows, int cols, i
   const cuuint64_t rows64 = static_cast<cuuint64_t>(rows), cols64 = static_cast<cuuint64_t>(cols);
   const cuuint64_t dims[3] = {f32 ? 32 : cols64, rows64, cols64 / 32};
   const cuuint64_t strides[2] = {cols64 * (f32 ? 4 : 2), 128};
-  const cuuint32_t box[3] = {f32 ? 32u : 64u, static_cast<cuuint32_t>(box_rows),
-                             static_cast<cuuint32_t>(chunk)};
+  const cuuint32_t box[3] = {f32 ? 32u : static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), static_cast<cuuint32_t>(chunk)};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUtensorMapDataType type =
       f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUresult r = fn(map, type, f32 ? 3 : 2, const_cast<void*>(plane), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        !f32 && box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   std::lock_guard<std::mutex> lock(mutex);

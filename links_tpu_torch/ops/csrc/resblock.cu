@@ -20,7 +20,9 @@
 // Tensor cores multiply bf16 or tf32. Under bf16 every operand is a sum of bf16 terms: one term
 // for an operand the policy rounds to bf16, two (hi = bf16(v), lo = bf16(v - hi): 16
 // significant bits) for an f32 gradient. The f32 backward splits each operand into three bf16
-// terms (24 bits, f32's own precision) and sums the term products i + j < 3. The f32 forward
+// terms, t0 = bf16(v), t1 = bf16(v - t0), t2 = bf16(v - t0 - t1) (24 significant bits, f32's
+// own: t0 + t1 + t2 == v for |v| >= 2^-110), and sums the six term products i + j < 3 (the
+// dropped ones are ~2^-24 of the product). The f32 forward
 // splits each operand v into big + small, big = v with its low 13 mantissa bits cleared (a tf32
 // value: 11 significant bits) and small = v - big (exact), and sums big.big + small.big +
 // big.small on tf32 wgmma (small.small, ~2^-22 of the product, is dropped; small enters the
@@ -32,7 +34,8 @@
 //   backward: from (x, W, b, dy) to (dx, dW, db) a block needs 6 products (a1 and a2 recomputed),
 //     6.4 GFLOP -> 6.5 us; 23.1 MB -> 6.9 us.
 //   f32 forward at its own method (three TF32 passes, 494.7 TFLOP/s dense): 13.0 us; at B =
-//     4096, 104 us.
+//     4096, 104 us. f32 backward at its own (six bf16 term products per product, 4 products,
+//     164.9 TFLOP/s): 26.0 us; at B = 4096, 208 us.
 // Both are bound by bytes at B = 512 and by operations at B = 4096. chip_smoke.py recomputes
 // these for the shapes it times.
 //
@@ -86,59 +89,46 @@
 // follows in shared memory, which reaches only output rows the epilogue drops. Launches:
 // forward 3 (x's small plane; a1, h and h's small plane; a2 and y), 2 at one row tile.
 //
-// f32 backward: the first design, kept as it was. A plain tiled GEMM with wmma bf16 16x16x16
-// fragments: 64 x 64 output tiles, a 32-deep K step staged through registers from the f32
-// masters (each operand split into three bf16 terms as it is stored to shared memory), one
-// shared-memory buffer. Launches: 5. Its dh, dx and dW read W or the activations along M or N,
-// which tf32 wgmma cannot take.
+// f32 backward (terms3_gemm): the bf16 policy's TMA ring and warp specialisation on three term
+// planes per operand. Planes, each written once and copied by TMA: W1's and W2's (3 x H x H),
+// cached per weight version by the wrapper (split_kernel); g2 = dy * lrelu'(a2)'s, x's and h's,
+// written by one split_kernel launch at the call's start (g2's per-16-row column sums beside them);
+// g1's, written by the dh product's epilogue with its column sums (g1 is not rounded: that
+// rounding is the bf16 policy's). A stage holds a K tile of A's three planes and B's three; a
+// consumer warpgroup issues the six term products, smallest first, each over the tile's k16
+// slices; operands contiguous along M or N (W in dh and dx, g and x / h in dW) go through wgmma's
+// transpose bits. Each K tile's products go to an accumulator of their own, added round to nearest
+// into a register sum while the next tile's run, as the f32 forward's. The tile plan comes from
+// the host (ops/resblock.py:f32_bwd_plan), per product: 128 x 128 with two row warpgroups and
+// 32-deep K tiles (a K-contiguous A in the 64-byte swizzle), so that its ring holds 4 stages of 48
+// KB (2 stages of 64-deep tiles ran it 1.4x slower at B = 4096), its 192 registers of accumulators
+// and sum given by the producer warpgroup (setmaxnreg); or 64 x 64 with one warpgroup and 64-deep
+// K tiles, 4 stages of 48 KB (2 at two blocks per SM, where the grid is larger than the card).
+// Where the output tiles are too few to fill the card (at H = 1024: dh and dx to B = 448 and from
+// 641 to 1,024, dW from B = 97), the K tiles are split over the 2 blocks of a cluster, and each
+// tile's 16-row slabs are finished by the cluster's blocks in turn, adding the blocks' parked sums
+// in rank order through distributed shared memory: no float atomics, no scratch, no extra launch
+// (the kernel takes clusters of up to 8, which ran slower: the card holds fewer of them at once).
+// Launches: backward 6 (split g2, x and h; dh -> g1; dW2; dx; dW1; db1 and db2).
 //
-// Under both policies every output tile belongs to one block, which loops over the whole
-// reduction (K = H, or K = B for dW), so there are no float atomics and repeated runs agree
-// bitwise. The forward saves a1, h and a2 (h, and x, as bf16 planes under bf16) for the
-// backward instead of recomputing them as the TPU kernel does: the recompute would add two
-// products to the backward's four.
+// Under both policies every output tile belongs to one block, or to one cluster of blocks that
+// add their shares of the reduction (K = H, or K = B for dW) in a fixed order, so there are no
+// float atomics and repeated runs agree bitwise. The forward saves a1, h and a2 (h, and x, as
+// bf16 planes under bf16) for the backward instead of recomputing them as the TPU kernel does:
+// the recompute would add two products to the backward's four.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <mutex>
-#include <type_traits>
-#include <unordered_map>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps: 4 (rows) x 2 (columns) of 16 x 32 outputs
-constexpr int BM = 64;         // output tile rows (and the rows of a staged operand tile)
-constexpr int BN = 64;         // output tile columns
-constexpr int BK = 32;         // reduction step
-constexpr int kPad = 8;        // bf16 elements of row padding (keeps fragment rows 32 B aligned)
-constexpr int kPadC = 4;       // f32 elements of row padding of the accumulator tile
-// one bf16 term of a staged 64 x 32 operand tile, in either layout: [64][BK + kPad] when the
-// operand is contiguous along k, [BK][64 + kPad] when it is contiguous along its rows
-constexpr int kTermElems = BM * (BK + kPad);
 constexpr float kSlope = 0.01f;
 
 enum Epi { kFwd1, kFwd2, kDh, kDx, kDw, kProduct };
-
-// C (M x N) = A (M x K) B^T, with B given as N x K. Element (r, k) of an operand lies at
-// p[r * ld + k] when it is contiguous along k, else at p[k * ld + r]. Outputs and `aux` are
-// row-major (M, N).
-struct Gemm {
-  const float* a;
-  const float* a_mask;  // if set: A's element is multiplied by lrelu'(a_mask) at its index
-  const float* b;
-  long long lda, ldb;
-  int M, N, K;
-  float* out0;
-  const float* aux;  // the epilogue's elementwise input
-};
 
 __device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : kSlope * v; }
 __device__ __forceinline__ float dlrelu(float v) { return v >= 0.f ? 1.f : kSlope; }
@@ -146,187 +136,34 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Loads this thread's two float4s of the 64 x 32 operand tile at (r0, k0), along the operand's
-// contiguous dimension; zero outside (rows, K).
-template <bool KCONT>
-__device__ __forceinline__ void load_tile(float4 (&v)[2], const float* p, const float* mask,
-                                          long long ld, int rows, int K, int r0, int k0) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = KCONT ? i / (BK / 4) : (i % (BM / 4)) * 4;
-    const int k = KCONT ? (i % (BK / 4)) * 4 : i / (BM / 4);
-    const int gr = r0 + r, gk = k0 + k;
-    v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gr < rows && gk < K) {
-      const long long off = KCONT ? gr * ld + gk : gk * ld + gr;
-      v[j] = __ldg(reinterpret_cast<const float4*>(p + off));
-      if (mask) {
-        const float4 m = __ldg(reinterpret_cast<const float4*>(mask + off));
-        v[j].x *= dlrelu(m.x);
-        v[j].y *= dlrelu(m.y);
-        v[j].z *= dlrelu(m.z);
-        v[j].w *= dlrelu(m.w);
-      }
-    }
-  }
-}
-
-// Stores the loaded float4s into shared memory as NT bf16 terms (term t at s + t * kTermElems):
-// term 0 is the value rounded to bf16, each later term the rounded remainder.
-template <bool KCONT, int NT>
-__device__ __forceinline__ void store_tile(__nv_bfloat16* s, const float4 (&v)[2]) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = KCONT ? i / (BK / 4) : (i % (BM / 4)) * 4;
-    const int k = KCONT ? (i % (BK / 4)) * 4 : i / (BM / 4);
-    __nv_bfloat16* dst = s + (KCONT ? r * (BK + kPad) + k : k * (BM + kPad) + r);
-    float e[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(e[0], e[1]);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(e[2], e[3]);
-      // the remainders are exact: a value less its rounding to 8 significant bits
-      e[0] -= __low2float(lo);
-      e[1] -= __high2float(lo);
-      e[2] -= __low2float(hi);
-      e[3] -= __high2float(hi);
-      *reinterpret_cast<uint2*>(dst + t * kTermElems) = make_uint2(
-          *reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
-    }
-  }
-}
-
-template <int EPI>
-__device__ __forceinline__ void epilogue(const Gemm& g, const float4 acc, long long o) {
-  float v[4] = {acc.x, acc.y, acc.z, acc.w};
-  float aux[4] = {0.f, 0.f, 0.f, 0.f};
-  if (EPI == kDh || EPI == kDx) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(g.aux + o));
-    aux[0] = a.x;
-    aux[1] = a.y;
-    aux[2] = a.z;
-    aux[3] = a.w;
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if (EPI == kDh) {  // g1 = dh * lrelu'(a1)
-      v[c] *= dlrelu(aux[c]);
-    } else if (EPI == kDx) {  // dx = dy + g1 W1
-      v[c] += aux[c];
-    }  // else dW
-  }
-  *reinterpret_cast<float4*>(g.out0 + o) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-template <bool A_KCONT, bool B_KCONT, int NA, int NB, int EPI>
-__global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm g) {
-  constexpr int kTerms = cmax(NA, NB);  // term products i + j < kTerms are summed
-  constexpr int kStageBytes = (NA + NB) * kTermElems * 2;
-  constexpr int kAccBytes = BM * (BN + kPadC) * 4;
-  __shared__ __align__(128) unsigned char smem[cmax(kStageBytes, kAccBytes)];
-  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sb = sa + NA * kTermElems;
-  float(*sc)[BN + kPadC] = reinterpret_cast<float(*)[BN + kPadC]>(smem);
-
-  using LA = std::conditional_t<A_KCONT, wmma::row_major, wmma::col_major>;
-  using LB = std::conditional_t<B_KCONT, wmma::col_major, wmma::row_major>;
-  constexpr int lda_s = A_KCONT ? BK + kPad : BM + kPad;
-  constexpr int ldb_s = B_KCONT ? BK + kPad : BN + kPad;
-
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  float4 ra[2], rb[2];
-  const int nk = (g.K + BK - 1) / BK;
-  load_tile<A_KCONT>(ra, g.a, g.a_mask, g.lda, g.M, g.K, row0, 0);
-  load_tile<B_KCONT>(rb, g.b, nullptr, g.ldb, g.N, g.K, col0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    store_tile<A_KCONT, NA>(sa, ra);
-    store_tile<B_KCONT, NB>(sb, rb);
-    __syncthreads();
-    if (kt + 1 < nk) {  // the next step's loads are in flight during this step's products
-      load_tile<A_KCONT>(ra, g.a, g.a_mask, g.lda, g.M, g.K, row0, (kt + 1) * BK);
-      load_tile<B_KCONT>(rb, g.b, nullptr, g.ldb, g.N, g.K, col0, (kt + 1) * BK);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> fa[NA];
-      const int a_off = A_KCONT ? wm * 16 * lda_s + kk : kk * lda_s + wm * 16;
-#pragma unroll
-      for (int i = 0; i < NA; ++i) wmma::load_matrix_sync(fa[i], sa + i * kTermElems + a_off, lda_s);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n0 = wn * 32 + j * 16;
-        const int b_off = B_KCONT ? n0 * ldb_s + kk : kk * ldb_s + n0;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> fb[NB];
-#pragma unroll
-        for (int t = 0; t < NB; ++t)
-          wmma::load_matrix_sync(fb[t], sb + t * kTermElems + b_off, ldb_s);
-#pragma unroll
-        for (int i = 0; i < NA; ++i)
-#pragma unroll
-          for (int t = 0; t < NB; ++t)
-            if (i + t < kTerms) wmma::mma_sync(acc[j], fa[i], fb[t], acc[j]);
-      }
-    }
-    __syncthreads();  // every warp is done with the staged tile before it is overwritten
-  }
-
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(&sc[wm * 16][wn * 32 + j * 16], acc[j], BN + kPadC,
-                            wmma::mem_row_major);
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < BM * BN / 4 / kThreads; ++q) {
-    const int i = threadIdx.x + q * kThreads;
-    const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
-    const int m = row0 + r, n = col0 + c;
-    if (m < g.M)
-      epilogue<EPI>(g, *reinterpret_cast<const float4*>(&sc[r][c]), (long long)m * g.N + n);
-  }
-}
-
-// db1 = sum over rows of p1 and db2 = sum over rows of p2 * lrelu'(q2), or of p2 if q2 is null,
-// both (H), from `rows` rows: g1, dy and a2 (B rows) under the f32 policy, the per-16-row partial
-// sums of g1 and g2 under bf16. A block owns kSumCols columns of one of them; each of its
-// kSumGroups thread groups sums every kSumGroups-th row into kSumUnroll independent partial sums
-// (loads in flight), and the partials are combined in a fixed order: no atomics, so repeated
-// runs agree bitwise.
+// db1 and db2 (H): the sums over `rows` rows of p1 and p2 (rows x H), the per-16-row partial
+// column sums of g1 and g2. A block owns kSumCols columns of one of them; each of its kSumGroups
+// thread groups sums every kSumGroups-th row into kSumUnroll independent partial sums (loads in
+// flight), and the partials are combined in a fixed order: no atomics, so repeated runs agree
+// bitwise.
 constexpr int kSumThreads = 512;
 constexpr int kSumCols = 16;  // a half warp reads 64 contiguous bytes of a row
 constexpr int kSumGroups = kSumThreads / kSumCols;
 constexpr int kSumUnroll = 8;
 
 __global__ void __launch_bounds__(kSumThreads)
-    bias_grads_kernel(const float* p1, const float* p2, const float* q2, float* db1, float* db2,
-                      int rows, int H) {
+    bias_grads_kernel(const float* p1, const float* p2, float* db1, float* db2, int rows, int H) {
   __shared__ float part[kSumGroups][kSumCols + 1];
   const int lane = threadIdx.x % kSumCols, grp = threadIdx.x / kSumCols;
   const int c = blockIdx.x * kSumCols + lane;  // in [0, 2H)
   const bool second = c >= H;
   const int col = second ? c - H : c;
-  auto value = [&](int r) {
-    const long long o = (long long)r * H + col;
-    return second ? __ldg(p2 + o) * (q2 ? dlrelu(__ldg(q2 + o)) : 1.f) : __ldg(p1 + o);
-  };
+  const float* p = second ? p2 : p1;
   float acc[kSumUnroll];
 #pragma unroll
   for (int u = 0; u < kSumUnroll; ++u) acc[u] = 0.f;
   int r = grp;
   for (; r + (kSumUnroll - 1) * kSumGroups < rows; r += kSumUnroll * kSumGroups) {
 #pragma unroll
-    for (int u = 0; u < kSumUnroll; ++u) acc[u] += value(r + u * kSumGroups);
+    for (int u = 0; u < kSumUnroll; ++u)
+      acc[u] += __ldg(p + static_cast<long long>(r + u * kSumGroups) * H + col);
   }
-  for (; r < rows; r += kSumGroups) acc[0] += value(r);
+  for (; r < rows; r += kSumGroups) acc[0] += __ldg(p + static_cast<long long>(r) * H + col);
   float s = acc[0];
 #pragma unroll
   for (int u = 1; u < kSumUnroll; ++u) s += acc[u];
@@ -339,18 +176,11 @@ __global__ void __launch_bounds__(kSumThreads)
   }
 }
 
-cudaError_t bias_grads(const void* p1, const void* p2, const void* q2, void* db1, void* db2,
-                       int rows, int H, cudaStream_t stream) {
+cudaError_t bias_grads(const void* p1, const void* p2, void* db1, void* db2, int rows, int H,
+                       cudaStream_t stream) {
   bias_grads_kernel<<<2 * H / kSumCols, kSumThreads, 0, stream>>>(
-      static_cast<const float*>(p1), static_cast<const float*>(p2), static_cast<const float*>(q2),
-      static_cast<float*>(db1), static_cast<float*>(db2), rows, H);
-  return cudaGetLastError();
-}
-
-template <bool A_KCONT, bool B_KCONT, int NA, int NB, int EPI>
-cudaError_t launch(const Gemm& g, cudaStream_t stream) {
-  const dim3 grid(g.N / BN, (g.M + BM - 1) / BM);
-  gemm_kernel<A_KCONT, B_KCONT, NA, NB, EPI><<<grid, kThreads, 0, stream>>>(g);
+      static_cast<const float*>(p1), static_cast<const float*>(p2), static_cast<float*>(db1),
+      static_cast<float*>(db2), rows, H);
   return cudaGetLastError();
 }
 
@@ -388,46 +218,93 @@ __device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
 
 constexpr int kSumRows = 16;  // rows of one partial column sum (the split's and the dh tiles')
 
-// v (B x H f32), times lrelu'(mask) if mask is set, into hi = bf16(v) and, if lo is set,
-// lo = bf16(v - hi); if colsum is set, the column sums of each 16 rows of the masked v into
-// colsum (ceil(B / 16) x H). A thread owns 4 columns of 16 rows (blockIdx.y).
-__global__ void __launch_bounds__(kSplitThreads)
-    split_kernel(const float* __restrict__ v, const float* __restrict__ mask,
-                 __nv_bfloat16* __restrict__ hi, __nv_bfloat16* __restrict__ lo,
-                 float* __restrict__ colsum, int B, int H) {
+// The split of f32 values into bf16 terms: t0 = bf16(v), t1 = bf16(v - t0), t2 = bf16(v - t0 -
+// t1). Each remainder is exact (a value less its rounding to 8 significant bits), and so is t2
+// wherever v's last bit is not below bf16's least subnormal (|v| >= 2^-110 for any v, or v a
+// multiple of 2^-133): then t0 + t1 + t2 == v. Values above bf16's largest (3.39e38) overflow t0.
+// hi = t0 and lo = t1 hold v to 16 significant bits, t0 alone to 8.
+__device__ __forceinline__ void split_terms(const float (&v)[4], float (&t)[3][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    float r = v[c];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      t[i][c] = round_bf16(r);
+      r -= t[i][c];
+    }
+  }
+}
+
+// One operand's split: v (rows x cols f32), times lrelu'(mask) if mask is set, into the term
+// planes t that are set (t0; t0 and t1; or all three); with colsum, the column sums of each 16
+// rows of the masked v (ceil(rows / 16) x cols).
+struct SplitSrc {
+  const float* v;
+  const float* mask;
+  __nv_bfloat16* t[3];
+  float* colsum;
+};
+// Up to three operands of one shape, one per blockIdx.z.
+struct Split {
+  SplitSrc src[3];
+  int rows, cols;
+};
+
+// A thread owns 4 columns of 16 rows (blockIdx.y) of operand blockIdx.z.
+__global__ void __launch_bounds__(kSplitThreads) split_kernel(__grid_constant__ const Split p) {
+  const SplitSrc& q = p.src[blockIdx.z];
   const int c = 4 * (blockIdx.x * kSplitThreads + threadIdx.x);
-  if (c >= H) return;
+  if (c >= p.cols) return;
   float sum[4] = {0.f, 0.f, 0.f, 0.f};
   constexpr int kBatch = 8;  // rows whose loads are in flight together
   for (int r0 = blockIdx.y * kSumRows; r0 < (blockIdx.y + 1) * kSumRows; r0 += kBatch) {
     float4 a[kBatch], m[kBatch];
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
-      const long long o = static_cast<long long>(r0 + i) * H + c;
-      a[i] = r0 + i < B ? ldg4(v + o) : make_float4(0.f, 0.f, 0.f, 0.f);
-      m[i] = mask && r0 + i < B ? ldg4(mask + o) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const long long o = static_cast<long long>(r0 + i) * p.cols + c;
+      a[i] = r0 + i < p.rows ? ldg4(q.v + o) : make_float4(0.f, 0.f, 0.f, 0.f);
+      m[i] = q.mask && r0 + i < p.rows ? ldg4(q.mask + o) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
-      if (r0 + i >= B) break;
-      const long long o = static_cast<long long>(r0 + i) * H + c;
-      float e[4] = {a[i].x, a[i].y, a[i].z, a[i].w}, l[4];
-      if (mask) {
+      if (r0 + i >= p.rows) break;
+      const long long o = static_cast<long long>(r0 + i) * p.cols + c;
+      float e[4] = {a[i].x, a[i].y, a[i].z, a[i].w}, t[3][4];
+      if (q.mask) {
         e[0] *= dlrelu(m[i].x);
         e[1] *= dlrelu(m[i].y);
         e[2] *= dlrelu(m[i].z);
         e[3] *= dlrelu(m[i].w);
       }
-      store_bf16x4(hi + o, e);
+      split_terms(e, t);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        l[k] = e[k] - round_bf16(e[k]);
-        sum[k] += e[k];
-      }
-      if (lo) store_bf16x4(lo + o, l);
+      for (int k = 0; k < 3; ++k)
+        if (q.t[k]) store_bf16x4(q.t[k] + o, t[k]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) sum[k] += e[k];
     }
   }
-  if (colsum) st4(colsum + static_cast<long long>(blockIdx.y) * H + c, sum);
+  if (q.colsum) st4(q.colsum + static_cast<long long>(blockIdx.y) * p.cols + c, sum);
+}
+
+cudaError_t split(const Split& p, int operands, cudaStream_t stream) {
+  const dim3 grid((p.cols / 4 + kSplitThreads - 1) / kSplitThreads,
+                  (p.rows + kSumRows - 1) / kSumRows, operands);
+  split_kernel<<<grid, kSplitThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The split of one operand v (rows x cols) into the planes t0, t1, t2 that are not null.
+Split one_split(const void* v, const void* mask, void* t0, void* t1, void* t2, void* colsum,
+                int rows, int cols) {
+  Split p = {};
+  p.src[0] = {static_cast<const float*>(v), static_cast<const float*>(mask),
+              {static_cast<__nv_bfloat16*>(t0), static_cast<__nv_bfloat16*>(t1),
+               static_cast<__nv_bfloat16*>(t2)},
+              static_cast<float*>(colsum)};
+  p.rows = rows;
+  p.cols = cols;
+  return p;
 }
 
 // The tensor maps of one product: A's term planes and B's plane.
@@ -689,16 +566,6 @@ cudaError_t run_wgmma(const Planes& p, const Epi16& e, int device, cudaStream_t 
   const bool large = e.N % 128 == 0 && ((e.M + 127) / 128) * (e.N / 128) >= sm_count(device);
   return large ? launch_wgmma<2, 128, NA, A_MN, B_MN, EPI>(p, e, device, stream)
                : launch_wgmma<1, 64, NA, A_MN, B_MN, EPI>(p, e, device, stream);
-}
-
-cudaError_t split(const void* v, const void* mask, void* hi, void* lo, void* colsum, int B, int H,
-                  cudaStream_t stream) {
-  const dim3 grid((H / 4 + kSplitThreads - 1) / kSplitThreads, (B + kSumRows - 1) / kSumRows);
-  split_kernel<<<grid, kSplitThreads, 0, stream>>>(
-      static_cast<const float*>(v), static_cast<const float*>(mask),
-      static_cast<__nv_bfloat16*>(hi), static_cast<__nv_bfloat16*>(lo),
-      static_cast<float*>(colsum), B, H);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------------------------
@@ -1050,6 +917,325 @@ cudaError_t run_tf32(int wg, int kw, int tbn, bool a_split, const void* a, const
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------------------------
+// The f32 policy's backward: three bf16 terms per operand on the TMA ring, six term products per
+// product on wgmma.
+
+// The tensor maps of one product: A's and B's three term planes.
+struct Maps3 {
+  CUtensorMap a[3], b[3];
+};
+
+// The epilogue's operands and the tile plan's runtime parts; outputs and `aux` are row-major
+// (M, N).
+struct Epi3 {
+  float* out;               // dx or dW
+  __nv_bfloat16* plane[3];  // g1's term planes
+  const float* aux;         // a1 (g1's mask) or dy (dx's residual)
+  float* colsum;            // g1's column sums of each 16 rows (ceil(M / 16) x N)
+  int M, N, K;
+  int stages;               // the ring's depth
+  int split;                // blocks of a cluster that share the tile's K tiles (gridDim.z)
+};
+
+// The term pairs (i, j), i + j < 3, of a product, smallest first.
+__host__ __device__ constexpr int pair_a(int p) { return p == 0 ? 2 : (p == 1 || p == 3) ? 1 : 0; }
+__host__ __device__ constexpr int pair_b(int p) { return p == 2 ? 2 : (p == 1 || p == 4) ? 1 : 0; }
+
+// One stage of the ring: a TK-deep K tile of A's three term planes (64 WG rows each) and of
+// B's (TBN columns each). A block's dynamic shared memory: the swizzle's alignment slack, the
+// ring, and a full and an empty barrier per stage. The epilogue parks 16 x (TBN + 8) floats per
+// consumer warp in the drained ring.
+__host__ __device__ constexpr int terms3_stage_bytes(int wg, int tbn, int tk) {
+  return 3 * (64 * wg + tbn) * tk * 2;
+}
+__host__ __device__ constexpr int terms3_smem_bytes(int wg, int tbn, int tk, int stages) {
+  return 1024 + stages * (terms3_stage_bytes(wg, tbn, tk) + 16);
+}
+__host__ __device__ constexpr int terms3_parked_bytes(int wg, int tbn) {
+  return 4 * wg * 16 * (tbn + 8) * 4;
+}
+
+// The epilogue of the four sums at row m, columns n .. n + 3: g1 = dh * lrelu'(a1), unrounded,
+// into its three term planes (returned, for db1's column sums); dx = dy + g1 W1; dW.
+template <int EPI>
+__device__ __forceinline__ float4 epilogue3(const Epi3& e, int m, int n, const float4 acc) {
+  if (m >= e.M) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const long long o = static_cast<long long>(m) * e.N + n;
+  float v[4] = {acc.x, acc.y, acc.z, acc.w};
+  if constexpr (EPI == kDh) {
+    const float4 a = ldg4(e.aux + o);
+    v[0] *= dlrelu(a.x);
+    v[1] *= dlrelu(a.y);
+    v[2] *= dlrelu(a.z);
+    v[3] *= dlrelu(a.w);
+    float t[3][4];
+    split_terms(v, t);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) store_bf16x4(e.plane[k] + o, t[k]);
+  } else if constexpr (EPI == kDx) {
+    const float4 dy = ldg4(e.aux + o);
+    v[0] += dy.x;
+    v[1] += dy.y;
+    v[2] += dy.z;
+    v[3] += dy.w;
+    st4(e.out + o, v);
+  } else {
+    st4(e.out + o, v);
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// p's generic address in the shared memory of the cluster's block `rank`.
+__device__ __forceinline__ const float* peer(const float* p, int rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const float*>(out);
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// C (M x N) = sum over the term pairs (i, j), i + j < 3, of A_i B_j^T, K deep, at f32 precision
+// from bf16 terms, in K tiles TK deep (64: one 128-byte swizzled row of a K-contiguous tile; 32:
+// half of one, in the 64-byte swizzle, so that a 128 x 128 tile's ring holds 4 stages). A's tile
+// is WG x 64 rows; each consumer warpgroup owns 64 of them and all TBN columns. B is read
+// N-contiguous (W in dh and dx, x / h in dW), A K-contiguous (g2 in dh, g1 in dx) or, A_MN,
+// M-contiguous (g2, g1 in dW): both through wgmma's transpose bits, from tiles TMA copied as
+// they lie (rows outside a plane arrive as zeros). Block `rank` of a cluster of
+// e.split along z takes the rank-th share of the K tiles. A warpgroup's K tile goes to an
+// accumulator of its own (its first wgmma overwrites it), added round to nearest into a register
+// sum while the next tile's wgmmas run: the tensor core's own adds truncate, with an error that
+// grows with what they add to. At two row warpgroups (192 registers of accumulators and sums)
+// the producer is a whole warpgroup that gives its registers to them.
+template <int WG, int TBN, int TK, bool A_MN, int EPI>
+__global__ void __launch_bounds__(128 * WG + (WG > 1 ? 128 : 32), 1)
+    terms3_gemm(__grid_constant__ const Maps3 maps, const Epi3 e) {
+  constexpr int kBox = 64 * TK * 2;          // 64 rows of a K tile: an M- or N-contiguous box
+  constexpr int kABytes = WG * kBox;         // one term of A's tile
+  constexpr int kBBytes = TBN * TK * 2;      // one term of B's tile
+  constexpr int kStageBytes = terms3_stage_bytes(WG, TBN, TK);
+  constexpr int kAcc = TBN / 2;              // accumulators per thread of m64 x TBN
+  constexpr int kLd = TBN + 8;               // floats per staged row: conflict-free 8-byte writes
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;  // the swizzle's alignment
+  const int stages = e.stages;
+  const uint32_t full0 = base + stages * kStageBytes, empty0 = full0 + stages * 8;
+  const int m0 = blockIdx.y * 64 * WG, n0 = blockIdx.x * TBN;
+  const int nk = (e.K + TK - 1) / TK, rank = blockIdx.z;  // the block's rank in its cluster
+  const int k_first = rank * nk / e.split, n_local = (rank + 1) * nk / e.split - k_first;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* const staged = reinterpret_cast<float*>(smem_raw + (base - smem_addr(smem_raw)));
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);        // the producer's arrival, plus the bytes
+      mbar_init(empty0 + 8 * s, 4 * WG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * WG) {  // the producer: one thread keeps the ring full
+    if constexpr (WG > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 4 * WG && lane == 0) {
+      for (int l = 0; l < n_local; ++l) {
+        const int s = l % stages;
+        if (l >= stages) mbar_wait(empty0 + 8 * s, ((l / stages) - 1) & 1);
+        const uint32_t st = base + s * kStageBytes, bar = full0 + 8 * s;
+        const int k0 = (k_first + l) * TK;
+        mbar_arrive_expect_tx(bar, kStageBytes);
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          if (A_MN) {
+#pragma unroll
+            for (int w = 0; w < WG; ++w)
+              tma_load(st + t * kABytes + w * kBox, &maps.a[t], bar, m0 + 64 * w, k0);
+          } else {
+            tma_load(st + t * kABytes, &maps.a[t], bar, k0, m0);
+          }
+#pragma unroll
+          for (int j = 0; j < TBN / 64; ++j)
+            tma_load(st + 3 * kABytes + t * kBBytes + j * kBox, &maps.b[t], bar, n0 + 64 * j,
+                     k0);
+        }
+      }
+    }
+    __syncwarp();
+    if (e.split > 1) {  // the epilogue's two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;  // no code after this point runs on the producer's 40 registers
+  }
+  if constexpr (WG > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  {  // the consumer warpgroups' mainloop
+    const int wg = warp / 4;
+    float acc[2][kAcc], sum[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[0][i] = acc[1][i] = sum[i] = 0.f;
+    // Descriptors: along K a k16 slice is 32 bytes into each row of a K-contiguous tile (rows of
+    // TK bf16 in the 128- or 64-byte swizzle, 8-row groups 8 rows apart), or 16 rows (2048
+    // bytes) down an M- or N-contiguous one (rows of 64 in the 128-byte swizzle, 8-row groups
+    // 1024 bytes apart); the 64-wide boxes of a 128-wide B tile lie kBox apart. A warpgroup's 64
+    // rows of A lie kBox into the tile in either layout.
+    constexpr uint32_t kStepA = A_MN ? 2048 : 32, kLboA = A_MN ? 1024 : 16;
+    constexpr uint32_t kSboA = A_MN ? 1024 : 8 * TK * 2, kSwizzleA = A_MN || TK == 64 ? 1 : 2;
+    constexpr uint32_t kLboB = TBN > 64 ? kBox : 1024;
+    // K tile l into x (its first wgmma overwrites x), then prev (tile l - 1) into the sum
+    auto step = [&](float (&x)[kAcc], float (&prev)[kAcc], int l) {
+      const int s = l % stages;
+      mbar_wait(full0 + 8 * s, (l / stages) & 1);
+      const uint32_t st = base + s * kStageBytes;
+      fence_regs(x);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 6; ++p) {
+#pragma unroll
+        for (int kk = 0; kk < TK / 16; ++kk) {
+          const uint32_t a = st + pair_a(p) * kABytes + wg * kBox + kk * kStepA;
+          const uint32_t b = st + 3 * kABytes + pair_b(p) * kBBytes + kk * 2048;
+          wgmma<TBN, A_MN, 1>(x, smem_desc(a, kLboA, kSboA, kSwizzleA),
+                              smem_desc(b, kLboB, 1024), p > 0 || kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // tile l - 1 is done: add it, and release its stage
+      fence_regs(x);
+      fence_regs(prev);
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) sum[i] += prev[i];
+      if (l > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((l - 1) % stages));
+    };
+    for (int l = 0; l < n_local; l += 2) {
+      step(acc[0], acc[1], l);
+      if (l + 1 < n_local) step(acc[1], acc[0], l + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    const bool odd = n_local % 2;  // the last K tile went to acc[0]
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i)
+      if (n_local > 0) sum[i] += odd ? acc[0][i] : acc[1][i];
+
+    // Park the sums in the drained ring, as wgmma_gemm's epilogue: accumulator j of a thread
+    // lies at row lane / 4 (+ 8 for j % 4 >= 2), column 8 (j / 4) + 2 (lane % 4) + j % 2 of the
+    // warp's 16-row slab.
+    asm volatile("bar.sync 1, %0;\n" ::"n"(128 * WG) : "memory");
+    float* tile = staged + warp * 16 * kLd;
+#pragma unroll
+    for (int j = 0; j < TBN / 8; ++j) {
+      float* q = tile + (lane / 4) * kLd + 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(q) = make_float2(sum[4 * j], sum[4 * j + 1]);
+      *reinterpret_cast<float2*>(q + 8 * kLd) = make_float2(sum[4 * j + 2], sum[4 * j + 3]);
+    }
+    __syncwarp();
+  }
+
+  // Each 16-row slab w of the tile is finished by warp w of the cluster's block w % split, which
+  // adds the split's parked sums of the slab in rank order (through distributed shared memory)
+  // and writes whole rows of float4s. A cluster barrier before (every sum parked) and after
+  // (no block leaves while another still reads its shared memory).
+  if (e.split > 1) cluster_sync();
+  if (warp % e.split == rank) {
+    const float* slab = staged + warp * 16 * kLd;
+    const float* part[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) part[q] = e.split > 1 && q < e.split ? peer(slab, q) : slab;
+    constexpr int kRowsPerStep = 128 / TBN;  // a warp's 32 float4s cover this many rows
+    const int row0 = m0 + 16 * warp;
+    const int c = 4 * (lane % (TBN / 4));
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < 16; r += kRowsPerStep) {
+      const int rr = r + lane / (TBN / 4);
+      float4 w[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (q < e.split) w[q] = *reinterpret_cast<const float4*>(part[q] + rr * kLd + c);
+      float4 v = w[0];
+#pragma unroll
+      for (int q = 1; q < 8; ++q)
+        if (q < e.split) v = make_float4(v.x + w[q].x, v.y + w[q].y, v.z + w[q].z, v.w + w[q].w);
+      const float4 g = epilogue3<EPI>(e, row0 + rr, n0 + c, v);
+      sum = make_float4(sum.x + g.x, sum.y + g.y, sum.z + g.z, sum.w + g.w);
+    }
+    if constexpr (EPI == kDh) {  // the column sums of the slab's 16 rows of g1, for db1
+      if constexpr (kRowsPerStep == 2) {  // the two half warps summed alternate rows
+        sum.x += __shfl_xor_sync(0xffffffffu, sum.x, 16);
+        sum.y += __shfl_xor_sync(0xffffffffu, sum.y, 16);
+        sum.z += __shfl_xor_sync(0xffffffffu, sum.z, 16);
+        sum.w += __shfl_xor_sync(0xffffffffu, sum.w, 16);
+      }
+      if (row0 < e.M && lane < TBN / 4)
+        *reinterpret_cast<float4*>(e.colsum + static_cast<long long>(row0 / kSumRows) * e.N + n0 +
+                                   c) = sum;
+    }
+  }
+  if (e.split > 1) cluster_sync();
+}
+
+template <int WG, int TBN, int TK, bool A_MN, int EPI>
+cudaError_t launch_terms3(const void* const (&a)[3], int a_rows, int a_cols,
+                          const void* const (&b)[3], int b_rows, int b_cols, const Epi3& e,
+                          int device, cudaStream_t stream) {
+  const int smem = terms3_smem_bytes(WG, TBN, TK, e.stages);
+  const int nk = (e.K + TK - 1) / TK;
+  if (e.stages < 1 || smem > kMaxSmem || e.N % TBN || e.split < 1 || e.split > 8 ||
+      e.split > nk ||
+      terms3_parked_bytes(WG, TBN) > e.stages * terms3_stage_bytes(WG, TBN, TK))
+    return cudaErrorInvalidValue;
+  auto kernel = terms3_gemm<WG, TBN, TK, A_MN, EPI>;
+  static bool sized[64] = {};
+  cudaError_t err = cudaSuccess;
+  if (device < 0 || device >= 64 || !sized[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    if (device >= 0 && device < 64) sized[device] = true;
+  }
+  Maps3 maps = {};
+  for (int t = 0; t < 3 && err == cudaSuccess; ++t) {
+    err = A_MN ? plane_map(&maps.a[t], a[t], a_rows, a_cols, TK)
+               : plane_map(&maps.a[t], a[t], a_rows, a_cols, 64 * WG, 0, TK);
+    if (err == cudaSuccess) err = plane_map(&maps.b[t], b[t], b_rows, b_cols, TK);
+  }
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(e.N / TBN, (e.M + 64 * WG - 1) / (64 * WG), e.split);
+  cfg.blockDim = dim3(128 * WG + (WG > 1 ? 128 : 32));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = e.split;
+  cfg.attrs = cluster;
+  cfg.numAttrs = e.split > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps, e);
+  return err == cudaSuccess ? cudaGetLastError() : err;
+}
+
+// One product on the plan's tile (ops/resblock.py:f32_bwd_plan; F32_BWD_TILES there lists the
+// tiles built here: (wg, cols, K tile)).
+template <bool A_MN, int EPI>
+cudaError_t run_terms3(int wg, int tbn, int tk, const void* const (&a)[3], int a_rows,
+                       int a_cols, const void* const (&b)[3], int b_rows, int b_cols,
+                       const Epi3& e, int device, cudaStream_t stream) {
+#define K1_TERMS3_TILE(WG, TBN, TK)                                                         \
+  if (wg == WG && tbn == TBN && tk == TK)                                                   \
+    return launch_terms3<WG, TBN, TK, A_MN, EPI>(a, a_rows, a_cols, b, b_rows, b_cols, e, \
+                                                 device, stream);
+  K1_TERMS3_TILE(2, 128, 32)
+  K1_TERMS3_TILE(1, 64, 64)
+#undef K1_TERMS3_TILE
+  return cudaErrorInvalidValue;
+}
+
 // Runs fn() with `device` current, and restores the calling thread's device.
 template <typename F>
 int on_device(int device, F fn) {
@@ -1062,7 +1248,7 @@ int on_device(int device, F fn) {
   return (int)err;
 }
 
-bool bad_shape(int B, int H) { return B < 1 || H < BN || H % BN; }
+bool bad_shape(int B, int H) { return B < 1 || H < 64 || H % 64; }
 
 }  // namespace
 
@@ -1143,68 +1329,109 @@ int res_block_f32_smem_bytes(int wg, int tbn, int a_rows, int chunk, int stages)
   return f32_smem_bytes(wg, tbn, a_rows, chunk, stages, true);
 }
 
-// The f32 policy's backward: from dy and the saved x, W1, W2, a1, h, a2 (all f32) writes dx
-// (B, H), dW1, dW2 (H, H, torch layout), db1, db2 (H), using g1 (B, H) as scratch. Launches on
-// `stream` and returns the cudaError_t of the launches (0 = ok); does not synchronise.
-int res_block_backward_f32(const void* dy, const void* x, const void* w1, const void* w2,
-                           const void* a1, const void* h, const void* a2, void* g1, void* dx,
-                           void* dw1, void* db1, void* dw2, void* db2, int B, int H, int device,
+// The f32 policy's backward: from dy and the saved x, h, a1, a2 (f32, B x H) and the three term
+// planes of W1 and W2 (bf16, 3 x H x H each, made by res_block_split), writes dx (B, H), dW1,
+// dW2 (H, H, torch layout), db1, db2 (H), using as scratch twelve bf16 (B, H) planes (the terms
+// of g2, g1, x, h) followed by the column sums of each 16 rows of g1 and of g2 (two f32 ceil(B /
+// 16) x H). (act_wg, act_cols, act_tk, act_split, act_stages) is ops/resblock.py:f32_bwd_plan's
+// tile of dh and dx, (w_*) of dW1 and dW2. Six launches on `stream`; returns the cudaError_t of
+// the launches (0 = ok); does not synchronise.
+int res_block_backward_f32(const void* dy, const void* x, const void* w1t, const void* w2t,
+                           const void* a1, const void* h, const void* a2, void* scratch,
+                           void* dx, void* dw1, void* db1, void* dw2, void* db2, int B, int H,
+                           int act_wg, int act_cols, int act_tk, int act_split, int act_stages,
+                           int w_wg, int w_cols, int w_tk, int w_split, int w_stages, int device,
                            void* stream) {
   if (bad_shape(B, H)) return (int)cudaErrorInvalidValue;
-  const float* fdy = static_cast<const float*>(dy);
-  const float* fa2 = static_cast<const float*>(a2);
-  float* fg1 = static_cast<float*>(g1);
-  // g1 = g2 W2 * lrelu'(a1): A = g2 = dy * lrelu'(a2) (B x H), B(n, k) = W2[k, n]
-  Gemm gdh = {};
-  gdh.a = fdy;
-  gdh.a_mask = fa2;
-  gdh.b = static_cast<const float*>(w2);
-  gdh.lda = gdh.ldb = H;
-  gdh.M = B;
-  gdh.N = gdh.K = H;
-  gdh.out0 = fg1;
-  gdh.aux = static_cast<const float*>(a1);
-  // dx = dy + g1 W1: A = g1, B(n, k) = W1[k, n]
-  Gemm gdx = gdh;
-  gdx.a = fg1;
-  gdx.a_mask = nullptr;
-  gdx.b = static_cast<const float*>(w1);
-  gdx.out0 = static_cast<float*>(dx);
-  gdx.aux = fdy;
-  // dW2[o, i] = sum_b g2[b, o] h[b, i]: A(o, b) = g2[b, o], B(i, b) = h[b, i], K = B
-  Gemm gdw2 = {};
-  gdw2.a = fdy;
-  gdw2.a_mask = fa2;
-  gdw2.b = static_cast<const float*>(h);
-  gdw2.lda = gdw2.ldb = H;
-  gdw2.M = gdw2.N = H;
-  gdw2.K = B;
-  gdw2.out0 = static_cast<float*>(dw2);
-  // dW1[o, i] = sum_b g1[b, o] x[b, i]
-  Gemm gdw1 = gdw2;
-  gdw1.a = fg1;
-  gdw1.a_mask = nullptr;
-  gdw1.b = static_cast<const float*>(x);
-  gdw1.out0 = static_cast<float*>(dw1);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long plane = static_cast<long long>(B) * H;
+  __nv_bfloat16* planes = static_cast<__nv_bfloat16*>(scratch);
+  auto terms = [&](int k) {  // operand k's three planes: g2, g1, x, h
+    __nv_bfloat16* p = planes + 3 * k * plane;
+    return SplitSrc{nullptr, nullptr, {p, p + plane, p + 2 * plane}, nullptr};
+  };
+  const SplitSrc g2 = terms(0), g1 = terms(1), xt = terms(2), ht = terms(3);
+  float* sums1 = reinterpret_cast<float*>(planes + 12 * plane);
+  float* sums2 = sums1 + static_cast<long long>((B + kSumRows - 1) / kSumRows) * H;
+  // one launch: g2 = dy * lrelu'(a2) with its column sums, x and h
+  Split sp = {};
+  sp.src[0] = {static_cast<const float*>(dy), static_cast<const float*>(a2),
+               {g2.t[0], g2.t[1], g2.t[2]}, sums2};
+  sp.src[1] = {static_cast<const float*>(x), nullptr, {xt.t[0], xt.t[1], xt.t[2]}, nullptr};
+  sp.src[2] = {static_cast<const float*>(h), nullptr, {ht.t[0], ht.t[1], ht.t[2]}, nullptr};
+  sp.rows = B;
+  sp.cols = H;
+  const __nv_bfloat16* w1p = static_cast<const __nv_bfloat16*>(w1t);
+  const __nv_bfloat16* w2p = static_cast<const __nv_bfloat16*>(w2t);
+  const long long wplane = static_cast<long long>(H) * H;
+  const void* const w1_terms[3] = {w1p, w1p + wplane, w1p + 2 * wplane};
+  const void* const w2_terms[3] = {w2p, w2p + wplane, w2p + 2 * wplane};
+  const void* const g2_terms[3] = {g2.t[0], g2.t[1], g2.t[2]};
+  const void* const g1_terms[3] = {g1.t[0], g1.t[1], g1.t[2]};
+  const void* const x_terms[3] = {xt.t[0], xt.t[1], xt.t[2]};
+  const void* const h_terms[3] = {ht.t[0], ht.t[1], ht.t[2]};
+  // g1 = (g2 W2) * lrelu'(a1): A = g2 (B x H), B(n, k) = W2[k, n] (N-contiguous); its planes,
+  // and its column sums for db1
+  Epi3 edh = {};
+  edh.plane[0] = g1.t[0];
+  edh.plane[1] = g1.t[1];
+  edh.plane[2] = g1.t[2];
+  edh.aux = static_cast<const float*>(a1);
+  edh.colsum = sums1;
+  edh.M = B;
+  edh.N = edh.K = H;
+  edh.stages = act_stages;
+  edh.split = act_split;
+  // dx = dy + g1 W1: B(n, k) = W1[k, n]
+  Epi3 edx = edh;
+  edx.out = static_cast<float*>(dx);
+  edx.aux = static_cast<const float*>(dy);
+  edx.colsum = nullptr;
+  // dW2[o, i] = sum_b g2[b, o] h[b, i]: A(o, b) = g2[b, o] (M-contiguous), B(i, b) = h[b, i]
+  // (N-contiguous), K = B
+  Epi3 edw2 = {};
+  edw2.out = static_cast<float*>(dw2);
+  edw2.M = edw2.N = H;
+  edw2.K = B;
+  edw2.stages = w_stages;
+  edw2.split = w_split;
+  // dW1[o, i] = sum_b g1[b, o] x[b, i]
+  Epi3 edw1 = edw2;
+  edw1.out = static_cast<float*>(dw1);
   return on_device(device, [&]() {
-    cudaError_t e = launch<true, false, 3, 3, kDh>(gdh, s);
-    if (e == cudaSuccess) e = launch<false, false, 3, 3, kDw>(gdw2, s);
-    if (e == cudaSuccess) e = launch<true, false, 3, 3, kDx>(gdx, s);
-    if (e == cudaSuccess) e = launch<false, false, 3, 3, kDw>(gdw1, s);
-    if (e == cudaSuccess) e = bias_grads(fg1, fdy, fa2, db1, db2, B, H, s);
+    cudaError_t e = split(sp, 3, s);
+    if (e == cudaSuccess)
+      e = run_terms3<false, kDh>(act_wg, act_cols, act_tk, g2_terms, B, H, w2_terms, H, H, edh,
+                                 device, s);
+    if (e == cudaSuccess)
+      e = run_terms3<true, kDw>(w_wg, w_cols, w_tk, g2_terms, B, H, h_terms, B, H, edw2, device,
+                                s);
+    if (e == cudaSuccess)
+      e = run_terms3<false, kDx>(act_wg, act_cols, act_tk, g1_terms, B, H, w1_terms, H, H, edx,
+                                 device, s);
+    if (e == cudaSuccess)
+      e = run_terms3<true, kDw>(w_wg, w_cols, w_tk, g1_terms, B, H, x_terms, B, H, edw1, device,
+                                s);
+    if (e == cudaSuccess)
+      e = bias_grads(sums1, sums2, db1, db2, (B + kSumRows - 1) / kSumRows, H, s);
     return e;
   });
 }
 
-// Splits v (B x H f32), times lrelu'(mask) if mask is not null, into the bf16 planes hi and, if
-// lo is not null, lo. One launch on `stream`.
-int res_block_split(const void* v, const void* mask, void* hi, void* lo, int B, int H, int device,
-                    void* stream) {
-  if (bad_shape(B, H)) return (int)cudaErrorInvalidValue;
-  return on_device(device, [&]() {
-    return split(v, mask, hi, lo, nullptr, B, H, static_cast<cudaStream_t>(stream));
-  });
+// A block's dynamic shared memory on the f32 backward's tile (wg, cols, K tile tk) with `stages`
+// stages: what ops/resblock.py:f32_bwd_smem_bytes computes.
+int res_block_f32_bwd_smem_bytes(int wg, int cols, int tk, int stages) {
+  return terms3_smem_bytes(wg, cols, tk, stages);
+}
+
+// Splits v (rows x cols f32), times lrelu'(mask) if mask is not null, into its bf16 term planes
+// t0, t1 and t2 (rows x cols each), each written if not null. One launch on `stream`.
+int res_block_split(const void* v, const void* mask, void* t0, void* t1, void* t2, int rows,
+                    int cols, int device, void* stream) {
+  if (rows < 1 || cols < 4 || cols % 4) return (int)cudaErrorInvalidValue;
+  const Split p = one_split(v, mask, t0, t1, t2, nullptr, rows, cols);
+  return on_device(device,
+                   [&]() { return split(p, 1, static_cast<cudaStream_t>(stream)); });
 }
 
 // The bf16 policy's forward for x (B, H), given the bf16 planes of W1 and W2: writes the x
@@ -1229,7 +1456,7 @@ int res_block_forward_bf16(const void* x, const void* w1, const void* b1, const 
   const Planes p1 = {{xp, nullptr}, B, H, w1, H, H};  // A = x (B x H), B(n, k) = W1[n, k]
   const Planes p2 = {{hp, nullptr}, B, H, w2, H, H};
   return on_device(device, [&]() {
-    cudaError_t e = split(x, nullptr, xp, nullptr, nullptr, B, H, s);
+    cudaError_t e = split(one_split(x, nullptr, xp, nullptr, nullptr, nullptr, B, H), 1, s);
     if (e == cudaSuccess) e = run_wgmma<1, false, false, kFwd1>(p1, l1, device, s);
     if (e == cudaSuccess) e = run_wgmma<1, false, false, kFwd2>(p2, l2, device, s);
     return e;
@@ -1276,13 +1503,13 @@ int res_block_backward_bf16(const void* dy, const void* xp, const void* w1, cons
   edw1.out0 = static_cast<float*>(dw1);
   const Planes pdw1 = {{g1hi, g1lo}, B, H, xp, B, H};
   return on_device(device, [&]() {
-    cudaError_t e = split(dy, a2, g2hi, g2lo, sums2, B, H, s);
+    cudaError_t e = split(one_split(dy, a2, g2hi, g2lo, nullptr, sums2, B, H), 1, s);
     if (e == cudaSuccess) e = run_wgmma<2, false, true, kDh>(pdh, edh, device, s);
     if (e == cudaSuccess) e = run_wgmma<2, true, true, kDw>(pdw2, edw2, device, s);
     if (e == cudaSuccess) e = run_wgmma<2, false, true, kDx>(pdx, edx, device, s);
     if (e == cudaSuccess) e = run_wgmma<2, true, true, kDw>(pdw1, edw1, device, s);
     if (e == cudaSuccess)
-      e = bias_grads(sums1, sums2, nullptr, db1, db2, (B + kSumRows - 1) / kSumRows, H, s);
+      e = bias_grads(sums1, sums2, db1, db2, (B + kSumRows - 1) / kSumRows, H, s);
     return e;
   });
 }

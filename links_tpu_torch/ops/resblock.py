@@ -33,7 +33,13 @@ as they lie; a weight's small plane comes from ``small_plane`` (one cast per
 weight version), x's and h's are made at each call (at one row tile, in the
 kernel's shared memory). ``res_block_forward_tf32``
 is the plain emulation of those numerics, ``f32_plan`` the kernel's tile
-plan. The f32 backward keeps three bf16 terms per operand.
+plan. The f32 backward multiplies at f32 precision through three bf16 terms
+per operand (``split_reference``: t0 + t1 + t2 == v), summing the six term
+products i + j < 3 per K tile; a weight's term planes come from
+``term_planes`` (one split per weight version), g2's, x's and h's are made
+at each call, g1's by the first product. ``res_block_backward_terms`` is
+the plain emulation of those numerics (and of the one-term controls),
+``f32_bwd_plan`` the kernel's tile plan per product.
 
 For ``torch.export`` the forward is also a registered op,
 ``links_tpu_torch::res_block_forward`` (``res_block_op``): a traced program
@@ -70,6 +76,15 @@ F32_KERNELS = frozenset({(2, 1, 128, False), (1, 2, 64, False), (1, 1, 64, False
                          (1, 4, 8, True)})
 F32_CHUNK_BYTES = 32768  # a ring stage holds several K tiles (one TMA box each) up to this
 SMEM_BYTES = 232448  # dynamic shared memory a Hopper block can have (227 KB)
+# The f32 backward's output tiles (warpgroups of 64 rows, columns, K tile depth), as its kernel
+# builds them (csrc/resblock.cu:run_terms3), and its K splits (blocks of a cluster that share a
+# tile's K tiles), in the order f32_bwd_plan tries them; its ring depth limit. Clusters of 4 and
+# 8 blocks ran slower than 2 at every batch on an H100 (a cluster's blocks share a GPC, and the
+# card's GPCs hold fewer such clusters at once than their blocks would fill).
+F32_BWD_TILES = ((2, 128, 32), (1, 64, 64))
+F32_BWD_SPLITS = (1, 2)
+F32_BWD_MIN_TILES = 2  # K tiles a block of a split keeps at least
+F32_BWD_MAX_STAGES = 8
 
 
 def _is_bf16(policy: Policy) -> bool:
@@ -81,13 +96,19 @@ def _round(t: torch.Tensor, policy: Policy) -> torch.Tensor:
 
 
 def split_reference(v: torch.Tensor, terms: int, mask: torch.Tensor | None = None):
-    """The plain split of an f32 operand into ``terms`` (1 or 2) bf16 planes:
-    hi = bf16(v) and lo = bf16(v - hi), which hold v to 16 significant bits.
-    With ``mask``, v is first multiplied by lrelu'(mask) (g2 = dy * lrelu'(a2))."""
+    """The plain split of an f32 operand into ``terms`` (1 to 3) bf16 planes:
+    t0 = bf16(v), t1 = bf16(v - t0), t2 = bf16(v - t0 - t1), each remainder
+    exact. hi = t0 and lo = t1 hold v to 16 significant bits; t0 + t1 + t2
+    == v wherever t2 is no bf16 subnormal that rounds (|v| >= 2^-110, or v a
+    multiple of 2^-133) and v is below bf16's largest value. With ``mask``, v
+    is first multiplied by lrelu'(mask) (g2 = dy * lrelu'(a2))."""
     if mask is not None:
         v = v * _dlrelu(mask)
-    hi = v.bfloat16()
-    return (hi,) if terms == 1 else (hi, (v - hi.float()).bfloat16())
+    planes = []
+    for _ in range(terms):
+        planes.append(v.bfloat16())
+        v = v - planes[-1].float()
+    return tuple(planes)
 
 
 def _dlrelu(v: torch.Tensor) -> torch.Tensor:
@@ -128,6 +149,55 @@ def res_block_forward_tf32(x, w1, b1, w2, b2, passes: int = 3):
     h = leaky_relu(a1)
     a2 = _dense_tf32(h, w2, b2, passes)
     return leaky_relu(a2) + x, a1, h, a2
+
+
+# the f32 backward's term products (i, j), i + j < 3, smallest first, as its kernel sums them
+_TERM_PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def _terms_product(a, b, method: str, split: int = 1, tk: int = 64):
+    """a (M, K) @ b (K, N), f32. ``method`` 'bf16x3': as the f32 backward's
+    kernel sums it: three bf16 terms per operand, the six term products i + j
+    < 3 of each ``tk``-deep K tile summed in f32, the tiles added in order
+    within each of ``split`` shares of K and the shares added in order.
+    'bf16' and 'tf32': each operand as one term (bf16-rounded, or
+    ``tf32_big``), with f32 sums: the controls."""
+    if method != "bf16x3":
+        one = (lambda t: t.bfloat16().float()) if method == "bf16" else tf32_big
+        return one(a) @ one(b)
+    ta = [t.float() for t in split_reference(a, 3)]
+    tb = [t.float() for t in split_reference(b, 3)]
+    nk = -(-a.shape[1] // tk)
+    out = None
+    for s in range(split):
+        part = None
+        for kt in range(s * nk // split, (s + 1) * nk // split):
+            ks = slice(kt * tk, (kt + 1) * tk)
+            tile = None
+            for i, j in _TERM_PAIRS:
+                prod = ta[i][:, ks] @ tb[j][ks]
+                tile = prod if tile is None else tile + prod
+            part = tile if part is None else part + tile
+        out = part if out is None else out + part
+    return out
+
+
+def res_block_backward_terms(dy, x, w1, w2, a1, h, a2, method: str = "bf16x3",
+                             plans: tuple | None = None):
+    """The plain emulation of the f32 backward kernel's numerics (``method``
+    'bf16x3'; ``plans``: the K tiles and splits of dh/dx and of dW, as
+    ``f32_bwd_plans`` gives them, else one 64-deep split), or one of the
+    controls its check must reject: every product operand (g2, g1, W1, W2,
+    x, h) as one bf16 term ('bf16') or its tf32_big term ('tf32', one TF32
+    pass), with f32 sums. db1 and db2 are f32 sums of g1 and g2. -> (dx,
+    dW1, db1, dW2, db2)."""
+    act, wgt = ((p.split, p.tk) for p in plans) if plans else ((1, 64), (1, 64))
+    g2 = dy * _dlrelu(a2)
+    g1 = _terms_product(g2, w2, method, *act) * _dlrelu(a1)
+    dx = dy + _terms_product(g1, w1, method, *act)
+    dw1 = _terms_product(g1.mT, x, method, *wgt)
+    dw2 = _terms_product(g2.mT, h, method, *wgt)
+    return dx, dw1, g1.sum(0), dw2, g2.sum(0)
 
 
 def res_block_forward_reference(x, w1, b1, w2, b2, policy: Policy):
@@ -247,10 +317,93 @@ def f32_plan(batch: int, hidden: int, sms: int) -> F32Plan:
                    f32_smem_bytes(wg, cols, a_rows, chunk, stages))
 
 
+class F32BwdPlan(NamedTuple):
+    wg: int          # warpgroups of 64 output rows each
+    rows: int        # output tile rows
+    cols: int        # output tile columns (wgmma's n)
+    tk: int          # K tile depth (bf16 values)
+    split: int       # blocks of a cluster that share the tile's K tiles
+    stages: int      # the ring's depth
+    row_tiles: int
+    col_tiles: int
+    grid: int        # blocks of the product: row_tiles x col_tiles x split
+    smem: int        # dynamic shared memory bytes of a block
+
+
+def f32_bwd_stage_bytes(wg: int, cols: int, tk: int) -> int:
+    """One ring stage of the f32 backward: a tk-deep K tile of A's three
+    bf16 term planes (64 wg rows) and of B's (cols columns)."""
+    return 3 * (64 * wg + cols) * tk * 2
+
+
+def f32_bwd_smem_bytes(wg: int, cols: int, tk: int, stages: int) -> int:
+    """A block's dynamic shared memory (the kernel's
+    res_block_f32_bwd_smem_bytes): the swizzle's alignment slack, the ring
+    and a full and an empty barrier per stage."""
+    return 1024 + stages * (f32_bwd_stage_bytes(wg, cols, tk) + 16)
+
+
+def f32_bwd_parked_bytes(wg: int, cols: int) -> int:
+    """What the epilogue parks in the drained ring: 16 x (cols + 8) f32 per
+    consumer warp."""
+    return 4 * wg * 16 * (cols + 8) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def f32_bwd_plan(m: int, n: int, k: int, sms: int) -> F32BwdPlan:
+    """The f32 backward's tile plan for one product C (m x n), k deep, on a
+    card with ``sms`` SMs: the first (tile, split) whose grid fills the card,
+    trying the tiles of ``F32_BWD_TILES`` in order (the 128 x 128 tile reads
+    half the bytes per product of the 64 x 64 one) and for each the splits
+    of ``F32_BWD_SPLITS`` that leave every block of the cluster
+    ``F32_BWD_MIN_TILES`` K tiles; else the one with the most blocks.
+    Unsplit, a grid fills the card when it leaves at most 1/8 of the SMs
+    without a block; split, at most 1/3, with no more blocks than SMs (a
+    cluster's barrier and sums cost more than the last SMs give, and a
+    second wave of clusters more still: tools/sweep_k1_f32_bwd.py on an
+    H100). The ring is as deep as shared memory allows (at least deep enough
+    to park the epilogue's sums): that of one block per SM, or of two 64-row
+    blocks where the grid is larger than the card and half still holds 2
+    stages."""
+    if m < 1 or k < 1 or n < 64 or n % 64:
+        raise ValueError(f"no f32 backward plan for a {m} x {n} product {k} deep")
+
+    def grid(c):
+        return -(-m // (64 * c[0])) * (n // c[1]) * c[3]
+
+    def fills(c):
+        return grid(c) >= sms - sms // 8 if c[3] == 1 else sms - sms // 3 <= grid(c) <= sms
+
+    cands = [(wg, cols, tk, split) for wg, cols, tk in F32_BWD_TILES if n % cols == 0
+             for split in F32_BWD_SPLITS
+             if split == 1 or -(-k // tk) // split >= F32_BWD_MIN_TILES]
+    wg, cols, tk, split = next((c for c in cands if fills(c)), max(cands, key=grid))
+    local = -(-(-(-k // tk)) // split)  # K tiles of the cluster's busiest block
+    least = -(-f32_bwd_parked_bytes(wg, cols) // f32_bwd_stage_bytes(wg, cols, tk))
+    pair = (SMEM_BYTES + 1024) // 2 - 1024
+
+    def depth(budget: int) -> int:
+        return max(least, min(local, F32_BWD_MAX_STAGES,
+                              (budget - 1024) // (f32_bwd_stage_bytes(wg, cols, tk) + 16)))
+
+    g = grid((wg, cols, tk, split))
+    # two 128-row tiles' blocks cannot share an SM: each takes most of its registers
+    stages = (depth(pair) if wg == 1 and g > sms and depth(pair) >= min(2, local)
+              else depth(SMEM_BYTES))
+    return F32BwdPlan(wg, 64 * wg, cols, tk, split, stages, -(-m // (64 * wg)), n // cols, g,
+                      f32_bwd_smem_bytes(wg, cols, tk, stages))
+
+
+def f32_bwd_plans(batch: int, hidden: int, sms: int) -> tuple[F32BwdPlan, F32BwdPlan]:
+    """The f32 backward's plans of dh and dx (B x H, H deep) and of dW1 and
+    dW2 (H x H, B deep)."""
+    return f32_bwd_plan(batch, hidden, hidden, sms), f32_bwd_plan(hidden, hidden, batch, sms)
+
+
 _LIB = None
 # CUDA kernel launches of one call of the forward and the backward, by policy (True: bf16);
 # the f32 forward launches one less where its plan makes A's small tiles in shared memory
-_LAUNCHES = {"forward": {True: 3, False: 3}, "backward": {True: 6, False: 5}}
+_LAUNCHES = {"forward": {True: 3, False: 3}, "backward": {True: 6, False: 6}}
 
 
 def _lib():
@@ -260,12 +413,13 @@ def _lib():
 
         lib = _build.load("resblock")
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name, pointers in (("res_block_forward_bf16", 10), ("res_block_backward_f32", 13),
-                               ("res_block_backward_bf16", 18)):
+        for name, pointers in (("res_block_forward_bf16", 10), ("res_block_backward_bf16", 18)):
             getattr(lib, name).argtypes = [p] * pointers + [i] * 3 + [p]
             getattr(lib, name).restype = i
         for name, argtypes in (("res_block_forward_f32", [p] * 13 + [i] * 10 + [p]),
-                               ("res_block_split", [p] * 4 + [i] * 3 + [p]),
+                               ("res_block_backward_f32", [p] * 13 + [i] * 13 + [p]),
+                               ("res_block_split", [p] * 5 + [i] * 3 + [p]),
+                               ("res_block_f32_bwd_smem_bytes", [i] * 4),
                                ("res_block_small", [p] * 2 + [i] * 3 + [p]),
                                ("res_block_tf32_product", [p] * 3 + [i] * 4 + [p]),
                                ("res_block_f32_smem_bytes", [i] * 5)):
@@ -314,9 +468,11 @@ def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-# id(weight) -> (weakref, _version, data_ptr, plane): the bf16 planes and the small planes
+# id(weight) -> (weakref, _version, data_ptr, plane): the bf16 planes, the small planes and
+# the three-term planes
 _PLANES: dict[int, tuple] = {}
 _SMALL: dict[int, tuple] = {}
+_TERMS: dict[int, tuple] = {}
 
 
 def _cached(cache: dict, w: torch.Tensor, make) -> tuple[torch.Tensor, bool]:
@@ -372,6 +528,18 @@ def small_plane(w: torch.Tensor) -> torch.Tensor:
 small_plane.casts = 0  # small planes made (cache misses)
 
 
+def term_planes(w: torch.Tensor) -> torch.Tensor:
+    """The three bf16 term planes of an f32 weight (3, out, in), made once
+    per version of ``w`` as ``weight_plane`` casts its bf16 plane, in a cache
+    of their own."""
+    plane, made = _cached(_TERMS, w, lambda t: split_planes(t, 3))
+    term_planes.casts += made
+    return plane
+
+
+term_planes.casts = 0  # term planes made (cache misses)
+
+
 def tf32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (M, K) b^T (b: (N, K)), f32, as one TF32 pass: for CUDA tensors the
     f32 forward's kernel handed the raw f32 operands (N a multiple of 64),
@@ -395,23 +563,24 @@ tf32_product.launches = 0
 
 def split_planes(v: torch.Tensor, terms: int, mask: torch.Tensor | None = None):
     """``split_reference`` as the split kernel (one launch) for a CUDA
-    tensor, the plain version for a CPU one: -> ``terms`` bf16 planes."""
+    tensor, the plain version for a CPU one: -> the (terms, rows, cols) bf16
+    planes of a 2D f32 ``v``."""
     if v.device.type == "cpu":
-        return split_reference(v, terms, mask)
+        return torch.stack(split_reference(v, terms, mask))
     named = {"v": (v, tuple(v.shape))}
     if mask is not None:
         named["mask"] = (mask, tuple(v.shape))
-    if v.dim() != 2 or terms not in (1, 2):
-        raise ValueError(f"split kernel: (B, H) f32 into 1 or 2 planes, got {tuple(v.shape)}")
+    if v.dim() != 2 or terms not in (1, 2, 3):
+        raise ValueError(f"split kernel: (rows, cols) f32 into 1 to 3 planes, got "
+                         f"{tuple(v.shape)} into {terms}")
     dev, index = _check(named, *v.shape)
-    planes = [torch.empty(v.shape, dtype=torch.bfloat16, device=dev) for _ in range(terms)]
+    planes = torch.empty((terms, *v.shape), dtype=torch.bfloat16, device=dev)
     err = _lib().res_block_split(v.data_ptr(), mask.data_ptr() if mask is not None else None,
-                                 planes[0].data_ptr(),
-                                 planes[1].data_ptr() if terms == 2 else None,
+                                 *(planes[t].data_ptr() if t < terms else None for t in range(3)),
                                  *v.shape, index, _stream(dev))
     _raise_on(err, "res_block split launch")
     split_planes.launches += 1
-    return tuple(planes)
+    return planes
 
 
 split_planes.launches = 0
@@ -455,10 +624,16 @@ def res_block_forward(x, w1, b1, w2, b2, policy: Policy):
     return y, a1, h, a2, x_saved
 
 
+def _bwd_args(p: F32BwdPlan) -> tuple[int, ...]:
+    return p.wg, p.cols, p.tk, p.split, p.stages
+
+
 def res_block_backward(dy, x, w1, w2, a1, h, a2, policy: Policy):
-    """The backward kernels (6 launches under BF16, 5 under F32): -> (dx, dW1,
-    db1, dW2, db2). ``x`` and ``h`` are what the forward saved: under BF16
-    their bf16 planes (``kernel_saved`` makes them from the plain forward's)."""
+    """The backward kernels (6 launches): -> (dx, dW1, db1, dW2, db2). ``x``
+    and ``h`` are what the forward saved: under BF16 their bf16 planes
+    (``kernel_saved`` makes them from the plain forward's); under F32 the f32
+    x and h, split into three bf16 terms at each call, and the products run
+    on ``f32_bwd_plans``' tiles."""
     n, hid = x.shape
     act = (n, hid)
     bf16 = _is_bf16(policy)
@@ -482,13 +657,19 @@ def res_block_backward(dy, x, w1, w2, a1, h, a2, policy: Policy):
             dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), n,
             hid, index, _stream(dev))
     else:
-        g1 = torch.empty(n, hid, device=dev)
+        plan_act, plan_w = f32_bwd_plans(n, hid, _sms(index))
+        # one scratch buffer: the three term planes of g2, g1, x and h (bf16), then the column
+        # sums of each 16 rows of g1 and of g2 (f32, for db1 and db2)
+        plane, sums = n * hid * 2, -(-n // 16) * hid * 4
+        scratch = torch.empty(12 * plane + 2 * sums, dtype=torch.uint8, device=dev)
         err = _lib().res_block_backward_f32(
-            dy.data_ptr(), x.data_ptr(), w1.data_ptr(), w2.data_ptr(), a1.data_ptr(),
-            h.data_ptr(), a2.data_ptr(), g1.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
-            db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), n, hid, index, _stream(dev))
+            dy.data_ptr(), x.data_ptr(), term_planes(w1).data_ptr(), term_planes(w2).data_ptr(),
+            a1.data_ptr(), h.data_ptr(), a2.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
+            dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), n, hid,
+            *_bwd_args(plan_act), *_bwd_args(plan_w), index, _stream(dev))
     _raise_on(err, "res_block_backward launch")
     res_block_backward.launches += 1
+    res_block_backward.f32_launches += not bf16
     res_block_backward.kernel_launches += _LAUNCHES["backward"][bf16]
     return dx, dw1, db1, dw2, db2
 
@@ -496,6 +677,7 @@ def res_block_backward(dy, x, w1, w2, a1, h, a2, policy: Policy):
 res_block_forward.launches = 0   # calls that launched the forward kernels
 res_block_forward.f32_launches = 0  # those of them under F32 (the tf32 kernel)
 res_block_backward.launches = 0  # calls that launched the backward kernels
+res_block_backward.f32_launches = 0  # those of them under F32 (the three-term kernel)
 res_block_forward.kernel_launches = 0   # CUDA kernels those calls launched
 res_block_backward.kernel_launches = 0
 

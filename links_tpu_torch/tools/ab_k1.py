@@ -14,10 +14,13 @@ again after that profiler session (it leaves the process slower), K1 under
 bf16 at B = 512 and 4096: forward and backward device ms per call from a
 CUDA graph of the wrapper's calls, eager ms per call (CUDA events around 50
 calls) and the wrapper's host ms per call (the least of 5 runs of 20
-enqueues), and K1's f32 forward at B = 1, 50, 256 and 4096 the same way,
-with the largest error of each of its outputs y, a1, h, a2 against the plain
-f32 forward (TF32 off), over that output's largest value. The card's name
-and power limit end each line.
+enqueues), K1's f32 forward at B = 1, 50, 256 and 4096 the same way, with
+the largest error of each of its outputs y, a1, h, a2 against the plain f32
+forward (TF32 off), over that output's largest value, and K1's f32 backward
+at B = 256, 512, 768 and 4096 the same way, with the largest error of each
+of its gradients dx, dW1, db1, dW2, db2 over that gradient's largest value,
+against the plain f32 backward (TF32 off) and against f64 values of the same
+gradients. The card's name and power limit end each line.
 """
 
 from __future__ import annotations
@@ -150,6 +153,18 @@ def _one(tree: str) -> dict:
         out[f"f32fwd{rows}_rel_err"] = [float((a - b).abs().max() / b.abs().max())
                                         for a, b in zip(got, want)]
         timed(f"f32fwd{rows}", lambda: K1.res_block_forward(x, w1, b1, w2, b2, F32))
+    for rows in (256, 512, 768, 4096):
+        x, w1, b1, w2, b2, dy = block_inputs(rows)
+        _, a1, h, a2 = K1.res_block_forward_reference(x, w1, b1, w2, b2, F32)
+        args = (dy, x, w1, w2, a1, h, a2)
+        got = K1.res_block_backward(*args, F32)
+        want = K1.res_block_backward_reference(*args, F32)
+        f64 = K1.res_block_backward_reference(*(t.double() for t in args), F32)
+        out[f"f32bwd{rows}_rel_err"] = [float((a - b).abs().max() / b.abs().max())
+                                        for a, b in zip(got, want)]
+        out[f"f32bwd{rows}_rel_err_f64"] = [float((a.double() - b).abs().max() / b.abs().max())
+                                            for a, b in zip(got, f64)]
+        timed(f"f32bwd{rows}", lambda: K1.res_block_backward(*args, F32))
     out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True, text=True,
                                  check=True).stdout.strip().splitlines()[0]

@@ -123,10 +123,13 @@ def test_fused_sides_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 # within one bf16 unit in the last place of the largest value (they are
 # rounded to bf16 after the sum), with fewer than K1_FLIP_SHARE of their
 # elements off by more than K1_FLIP_REL of their own value (rounding g1, g2
-# to one bf16 term, as the Pallas kernel does, moves 25-54% of them); every
-# other gradient within 1e-3 of the largest value (sums over the batch of
-# such flips, or f32 sums whose error scales with the partial sums, not with
-# the element).
+# to one bf16 term, as the Pallas kernel does, moves 25-54% of them); bf16
+# db1 and db2 within 1e-3 of the largest value (sums over the batch of such
+# flips). Every f32-policy gradient within K1_F32_TOL of its largest value
+# (three bf16 terms per operand; one bf16 term, or one TF32 pass, the
+# controls, are off by ~1e-4 to 3e-3 on every gradient that goes through a
+# product), against f64 values: the plain f32 backward's own dW lies up to
+# 1.4e-6 of the largest value from them at B = 768.
 K1_TOL = {"rtol": 1e-3, "atol": 1e-3}
 K1_F32_TOL = 1e-5
 K1_BF16_ULP = 2.0 ** -7
@@ -135,11 +138,19 @@ K1_FLIP_REL, K1_FLIP_SHARE = 1e-5, 0.1
 
 def _k1_grad_close(name, got, want, policy):
     err = (got - want).abs()
-    if policy is BF16 and name in ("dx", "dw1", "dw2"):
+    if policy is F32:
+        assert float(err.max()) <= K1_F32_TOL * float(want.abs().max()), name
+    elif name in ("dx", "dw1", "dw2"):
         assert float(err.max()) <= K1_BF16_ULP * float(want.abs().max()), name
         assert float((err > K1_FLIP_REL * want.abs()).float().mean()) < K1_FLIP_SHARE, name
     else:
         assert float(err.max()) <= K1_TOL["rtol"] * float(want.abs().max()), name
+
+
+def _f64_backward(dy, x, w1, w2, a1, h, a2):
+    """The plain backward's gradients computed in f64, as f32."""
+    return [t.float() for t in K1.res_block_backward_reference(
+        *(t.double() for t in (dy, x, w1, w2, a1, h, a2)), F32)]
 
 
 def _rel_err(got, want) -> float:
@@ -173,7 +184,8 @@ def test_res_block_kernels_match_plain_version(cuda, policy):
             _k1_grad_close("dx", h.float(), saved[2].float(), policy)  # h's plane: rounded
         assert torch.equal(x_saved, saved[0])
         got = K1.res_block_backward(dy, saved[0], w1, w2, *saved[1:], policy)
-        ref = K1.res_block_backward_reference(dy, x, w1, w2, *want[1:], policy)
+        ref = (_f64_backward(dy, x, w1, w2, *want[1:]) if policy is F32 else
+               K1.res_block_backward_reference(dy, x, w1, w2, *want[1:], policy))
         torch.cuda.synchronize()
         assert (K1.res_block_forward.launches, K1.res_block_backward.launches) == (
             before[0] + 1, before[1] + 1)
@@ -182,10 +194,10 @@ def test_res_block_kernels_match_plain_version(cuda, policy):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy,launches", [(BF16, (3, 6)), (F32, (3, 5))], ids=["bf16", "f32"])
+@pytest.mark.parametrize("policy,launches", [(BF16, (3, 6)), (F32, (3, 6))], ids=["bf16", "f32"])
 def test_res_block_kernel_launches_per_call(cuda, policy, launches):
     """3 forward launches, less one where the f32 plan makes A's small tiles
-    in shared memory (one row tile: B = 64 here)."""
+    in shared memory (one row tile: B = 64 here); 6 backward launches."""
     g = torch.Generator().manual_seed(7)
     x, w1, b1, w2, b2, dy = _k1_inputs(64, 256, g, cuda)
     if policy is F32:
@@ -229,6 +241,54 @@ def test_f32_forward_holds_the_f32_bound(cuda, batch):
         assert _rel_err(a, b) <= K1_F32_TOL, name
         assert _rel_err(c, b) > K1_F32_TOL, name
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 37, 512, 768])
+def test_f32_backward_holds_the_f32_bound(cuda, batch):
+    """Every tile of the f32 backward's plan (dh and dx: 64 x 64 split over 2
+    blocks at B = 1 and 37, unsplit at 512, 128 x 128 split at 768; dW: 64 x
+    64 below B = 97, 128 x 128 split above): dx, dW1, db1, dW2, db2 within
+    K1_F32_TOL of f64 values, both controls beyond it on the gradients that
+    go through a product, bitwise repeatable, all on the f32 route."""
+    g = torch.Generator().manual_seed(20 + batch)
+    x, w1, b1, w2, b2, dy = _k1_inputs(batch, 1024, g, cuda)
+    _, a1, h, a2 = K1.res_block_forward_reference(x, w1, b1, w2, b2, F32)
+    before = K1.res_block_backward.f32_launches
+    got = K1.res_block_backward(dy, x, w1, w2, a1, h, a2, F32)
+    again = K1.res_block_backward(dy, x, w1, w2, a1, h, a2, F32)
+    assert K1.res_block_backward.f32_launches == before + 2
+    want = _f64_backward(dy, x, w1, w2, a1, h, a2)
+    controls = [K1.res_block_backward_terms(dy, x, w1, w2, a1, h, a2, m) for m in ("bf16", "tf32")]
+    for k, name in enumerate(("dx", "dw1", "db1", "dw2", "db2")):
+        _k1_grad_close(name, got[k], want[k], F32)
+        if name != "db2":
+            assert all(_rel_err(c[k], want[k]) > K1_F32_TOL for c in controls), name
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 37, 512, 4096])
+def test_three_term_split_kernel_matches_plain_split(cuda, batch):
+    """Bitwise, with and without the lrelu' mask: both round to nearest even;
+    a weight's term planes are made once per version."""
+    g = torch.Generator().manual_seed(30 + batch)
+    v, m = (torch.randn(batch, 1024, generator=g).to(cuda) for _ in "vm")
+    for mask in (None, m):
+        before = K1.split_planes.launches
+        got = K1.split_planes(v, 3, mask)
+        assert K1.split_planes.launches == before + 1
+        want = K1.split_reference(v.cpu(), 3, None if mask is None else mask.cpu())
+        assert torch.equal(got.cpu(), torch.stack(want))
+    w = torch.randn(1024, 1024, generator=g).to(cuda).requires_grad_(True)
+    before = K1.term_planes.casts
+    planes = K1.term_planes(w)
+    assert K1.term_planes(w) is planes and K1.term_planes.casts == before + 1
+    with torch.no_grad():
+        w.add_(1.0)
+    fresh = K1.term_planes(w)
+    assert fresh is not planes and torch.equal(
+        fresh.cpu(), torch.stack(K1.split_reference(w.detach().cpu(), 3)))
 
 
 @pytest.mark.cuda
@@ -294,15 +354,20 @@ def test_res_block_autograd_runs_the_kernels(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("policy", [BF16, F32], ids=["bf16", "f32"])
 def test_res_block_kernels_are_deterministic(cuda, policy):
-    """Each output tile is summed by one block in a fixed order: no atomics."""
+    """Each output tile is summed by one block, or by the 2 blocks of a
+    cluster that add their sums in rank order, in a fixed order: no atomics
+    (the f32 backward's plan splits every product at B = 300 and 768, and
+    only dW at 2048)."""
     g = torch.Generator().manual_seed(5)
-    x, w1, b1, w2, b2, dy = _k1_inputs(300, 1024, g, cuda)
-    first = K1.res_block_forward(x, w1, b1, w2, b2, policy)
-    second = K1.res_block_forward(x, w1, b1, w2, b2, policy)
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
-    y, a1, h, a2, x_saved = first
-    grads = [K1.res_block_backward(dy, x_saved, w1, w2, a1, h, a2, policy) for _ in range(2)]
-    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    for batch in (300, 768, 2048):
+        x, w1, b1, w2, b2, dy = _k1_inputs(batch, 1024, g, cuda)
+        first = K1.res_block_forward(x, w1, b1, w2, b2, policy)
+        second = K1.res_block_forward(x, w1, b1, w2, b2, policy)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        y, a1, h, a2, x_saved = first
+        grads = [K1.res_block_backward(dy, x_saved, w1, w2, a1, h, a2, policy)
+                 for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 @pytest.mark.cuda
