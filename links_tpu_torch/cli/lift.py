@@ -43,6 +43,7 @@ import torch
 from links_tpu_torch.cli import _common as C
 from links_tpu_torch.core.nn import BF16, F32
 from links_tpu_torch.objectives.occlusion import DROPOUT_SCENARIO_JOINTS
+from links_tpu_torch.train.profiling import span
 
 
 def _load_raw_2d(path: str) -> np.ndarray:
@@ -62,12 +63,26 @@ def _load_raw_2d(path: str) -> np.ndarray:
     return arr
 
 
+def _chunks(fn, poses_2d: np.ndarray, batch: int, device, args: str | None = None) -> list:
+    """Run ``fn`` over chunks of at most ``batch`` poses -> each chunk's
+    output on the host. Per chunk, three spans with ``args``: ``lift.h2d``
+    (the copy to ``device``), ``lift.forward`` (``fn``) and ``lift.d2h`` (the
+    copy back, which waits for the device)."""
+    outs = []
+    for i in range(0, poses_2d.shape[0], batch):
+        # one name for input and output: the device input is freed when the forward returns
+        with span("lift.h2d", args):
+            x = torch.from_numpy(poses_2d[i:i + batch]).to(device)
+        with span("lift.forward", args):
+            x = fn(x)
+        with span("lift.d2h", args):
+            outs.append(x.cpu())
+    return outs
+
+
 def _chunked(fn, poses_2d: np.ndarray, batch: int, device) -> np.ndarray:
-    """Run ``fn`` over chunks of at most ``batch`` poses; copying each result
-    back to the host waits for the device."""
-    outs = [fn(torch.from_numpy(poses_2d[i:i + batch]).to(device)).cpu()
-            for i in range(0, poses_2d.shape[0], batch)]
-    return torch.cat(outs).numpy()
+    """``_chunks``' outputs, concatenated."""
+    return torch.cat(_chunks(fn, poses_2d, batch, device)).numpy()
 
 
 def add_serving_flags(parser):

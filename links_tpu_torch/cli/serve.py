@@ -12,7 +12,14 @@ forward, ``--fused`` on the fused serving kernel, ``--mode leg_torso``,
   N, "ms": t}``; malformed input is answered with 400, a failure of the
   model with 500, and the server stays up;
 * ``GET /healthz``: liveness, the model's description and the request, pose
-  and error counters (with coalescing, device batches and merged requests).
+  and error counters; with coalescing, the dispatcher's ``stats``: device
+  batches, merged requests, ``queue_wait_s`` (the seconds requests waited
+  in its queue, summed: over ``merged_requests``, the mean wait) and
+  ``dispatch_host_s`` (its host seconds merging requests and replying,
+  outside the device runs); and ``spans``, the process's span totals since
+  it started (train/profiling.py), ``{name: {"count", "seconds"}}``: the
+  dispatcher's ``serve.wait``, ``serve.merge``, ``serve.reply`` and each
+  chunk's ``lift.h2d``, ``lift.forward``, ``lift.d2h``.
 
 One dispatcher thread owns the device (the ``Coalescer``): HTTP threads hand
 it their poses and wait, and it merges the requests that queued while the
@@ -21,7 +28,8 @@ cost fewer than N device runs. A merged run that fails is retried request
 by request, so that one poisoned request fails alone. ``--no-coalesce``
 serializes each request's device work behind a lock instead. Autograd's
 inference mode is a per-thread setting, so the dispatcher (or the lock
-holder) enters it itself.
+holder) enters it itself. ``profiling.trace`` shows the dispatcher's spans
+beside the device's kernels.
 
 ``--artifact`` serves an exported model (``links_tpu_torch.cli.export_model``)
 in place of the checkpoints: the model flags are then ignored, with a warning,
@@ -50,7 +58,8 @@ import numpy as np
 import torch
 
 from links_tpu_torch.cli import _common as C
-from links_tpu_torch.cli.lift import _chunked, add_serving_flags, build_serving_fn
+from links_tpu_torch.cli.lift import _chunked, _chunks, add_serving_flags, build_serving_fn
+from links_tpu_torch.train.profiling import span, totals
 
 MAX_BODY = 256 * 1024 * 1024  # 256 MB, about 2M poses: anything larger is refused
 
@@ -65,7 +74,17 @@ class Coalescer:
     is unfilled), up to ``max_merge_chunks`` chunks of rows, concatenates
     it, runs it once and hands each caller its slice. A lone request waits
     for nothing. When a merged run raises, each of its requests is run alone,
-    so only a request that fails by itself gets the error."""
+    so only a request that fails by itself gets the error.
+
+    ``stats``: ``device_batches`` (runs), ``merged_requests`` (the requests
+    they answered), ``queue_wait_s`` (the seconds from each ``submit`` to the
+    dispatcher taking the request) and ``dispatch_host_s`` (the seconds of
+    its ``serve.merge`` and ``serve.reply`` spans). The dispatcher's spans
+    (train/profiling.py): ``serve.wait`` for the next request, ``serve.merge``
+    (the drain and the concatenation), the ``lift.*`` spans of each chunk
+    (cli/lift.py:_chunks) and ``serve.reply`` (the outputs' concatenation,
+    the callers' slices and their wake-up); a run's spans carry its number
+    and request count as ``args``."""
 
     _CLOSE = object()
 
@@ -76,8 +95,10 @@ class Coalescer:
         self.device = device
         self.max_wait = max_wait_ms / 1e3
         self.max_rows = max_merge_chunks * batch
-        self.stats = {"device_batches": 0, "merged_requests": 0}
+        self.stats = {"device_batches": 0, "merged_requests": 0, "queue_wait_s": 0.0,
+                      "dispatch_host_s": 0.0}
         self._q: queue.Queue = queue.Queue()
+        self._args = None
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="links-serve-dispatch")
         self._thread.start()
@@ -85,7 +106,7 @@ class Coalescer:
     def submit(self, poses: np.ndarray) -> np.ndarray:
         ev = threading.Event()
         slot: dict = {}
-        self._q.put((poses, ev, slot))
+        self._q.put((poses, ev, slot, time.perf_counter()))
         ev.wait()
         if "err" in slot:
             raise slot["err"]
@@ -94,6 +115,9 @@ class Coalescer:
     def close(self):
         self._q.put(self._CLOSE)
         self._thread.join(timeout=5)
+
+    def _take(self, item):
+        self.stats["queue_wait_s"] += time.perf_counter() - item[3]
 
     def _drain(self, pending, rows):
         """Merge queued requests into ``pending`` up to max_rows; with a wait
@@ -112,48 +136,67 @@ class Coalescer:
             if nxt is self._CLOSE:
                 self._q.put(self._CLOSE)  # stop after this run
                 break
+            self._take(nxt)
             pending.append(nxt)
             rows += nxt[0].shape[0]
         return pending
 
-    def _run(self, poses: np.ndarray) -> np.ndarray:
-        return _chunked(self.fn, poses, self.batch, self.device)
+    def _run(self, poses: np.ndarray) -> list:
+        return _chunks(self.fn, poses, self.batch, self.device, self._args)
 
-    def _loop(self):
-        with torch.inference_mode():  # per thread: this one runs the device work
-            while True:
-                item = self._q.get()
-                if item is self._CLOSE:
-                    return
-                pending = self._drain([item], item[0].shape[0])
-                arr = (pending[0][0] if len(pending) == 1 else
-                       np.concatenate([p[0] for p in pending]))
-                try:
-                    out = self._run(arr)
-                except Exception as e:  # the dispatcher must outlive a failed run
-                    if len(pending) == 1:
-                        _, ev, slot = pending[0]
-                        slot["err"] = e
-                        ev.set()
-                        continue
-                    # one poisoned request must not fail the others merged with it
-                    for poses, ev, slot in pending:
-                        try:
-                            slot["out"] = self._run(poses)
-                            self.stats["device_batches"] += 1
-                            self.stats["merged_requests"] += 1
-                        except Exception as e_i:
-                            slot["err"] = e_i
-                        ev.set()
-                    continue
-                self.stats["device_batches"] += 1
-                self.stats["merged_requests"] += len(pending)
+    def _reply(self, requests, outs) -> float:
+        """Hand each of ``requests`` its rows of ``outs`` (their outputs'
+        chunks), or its error (an exception); -> the span's seconds."""
+        with span("serve.reply", self._args) as reply:
+            if isinstance(outs, Exception):
+                for _, ev, slot, _ in requests:
+                    slot["err"] = outs
+                    ev.set()
+            else:
+                out = torch.cat(outs).numpy()
                 ofs = 0
-                for poses, ev, slot in pending:
+                for poses, ev, slot, _ in requests:
                     n = poses.shape[0]
                     slot["out"] = out[ofs:ofs + n]
                     ofs += n
                     ev.set()
+        return reply.seconds
+
+    def _loop(self):
+        with torch.inference_mode():  # per thread: this one runs the device work
+            run = 0
+            while True:
+                with span("serve.wait"):
+                    item = self._q.get()
+                if item is self._CLOSE:
+                    return
+                run += 1
+                with span("serve.merge", f"run {run}") as merge:
+                    self._take(item)
+                    pending = self._drain([item], item[0].shape[0])
+                    arr = (pending[0][0] if len(pending) == 1 else
+                           np.concatenate([p[0] for p in pending]))
+                host_s = merge.seconds
+                self._args = f"run {run} requests {len(pending)}"  # the run's spans' args
+                try:
+                    outs = self._run(arr)
+                except Exception as e:  # the dispatcher must outlive a failed run
+                    if len(pending) == 1:
+                        host_s += self._reply(pending, e)
+                    else:  # one poisoned request must not fail the others merged with it
+                        for p in pending:
+                            try:
+                                outs_i = self._run(p[0])
+                                self.stats["device_batches"] += 1
+                                self.stats["merged_requests"] += 1
+                            except Exception as e_i:
+                                outs_i = e_i
+                            host_s += self._reply([p], outs_i)
+                    self.stats["dispatch_host_s"] += host_s
+                    continue
+                self.stats["device_batches"] += 1
+                self.stats["merged_requests"] += len(pending)
+                self.stats["dispatch_host_s"] += host_s + self._reply(pending, outs)
 
 
 def _parse_poses(body: bytes, content_type: str) -> np.ndarray:
@@ -255,6 +298,8 @@ def make_server(args) -> ThreadingHTTPServer:
                 snap = dict(stats)
             if coalescer is not None:
                 snap.update(coalescer.stats)
+            snap["spans"] = {name: {"count": n, "seconds": sec}
+                             for name, (n, sec) in totals().items()}
             self._reply(200, {"ok": True, "model": model_desc, "batch": batch,
                               "coalescing": coalescer is not None, **snap})
 

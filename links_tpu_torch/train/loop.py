@@ -15,6 +15,7 @@ from typing import Callable
 import torch
 
 from links_tpu_torch.train import parallel
+from links_tpu_torch.train.profiling import span
 from links_tpu_torch.train.steps import TrainState, draw_step
 
 
@@ -44,17 +45,20 @@ def run_epoch(step_fn: Callable, state: TrainState, data, batch_size: int,
     ``draw_step`` by default; ``steps.draw_noise`` for the flow stages).
     ``batch_size`` is the global batch: with a ``group`` each step gets this
     rank's rows of it and the global draws. Reads the loss means back to the
-    host once, at the end."""
+    host once, at the end. Each step's draws run in the span ``train.draw``,
+    the read-back in ``train.readback``."""
     batches = (tensor_batches(data, batch_size, generator, group)
                if isinstance(data, torch.Tensor) else data.batches(batch_size, generator, group))
     sums, nb = {}, 0
     for batch in batches:
-        draws = draw(generator, batch_size, data.device)
+        with span("train.draw"):
+            draws = draw(generator, batch_size, data.device)
         for k, v in step_fn(state, batch, draws).items():
             sums[k] = sums[k] + v if k in sums else v
         nb += 1
-    means = torch.stack(list(sums.values())) / nb
-    if group is not None:
-        parallel.all_reduce_mean_([means], group)
-    means = means.tolist()
+    with span("train.readback"):
+        means = torch.stack(list(sums.values())) / nb
+        if group is not None:
+            parallel.all_reduce_mean_([means], group)
+        means = means.tolist()
     return dict(zip(sums, means))

@@ -31,6 +31,7 @@ from links_tpu_torch.objectives import lifter as lifter_obj
 from links_tpu_torch.objectives import occlusion as occ_obj
 from links_tpu_torch.train import parallel
 from links_tpu_torch.train.optim import Adam
+from links_tpu_torch.train.profiling import span
 
 
 @dataclasses.dataclass
@@ -117,11 +118,15 @@ def _policy(cfg):
 def _grads(loss_fn: Callable) -> Callable:
     """``loss_fn(model, batch, draws) -> (loss, aux)`` -> ``grads(model,
     batch, draws) -> (aux, grads)``: the loss terms (detached) and the
-    gradient of every parameter, in ``model.parameters()`` order."""
+    gradient of every parameter, in ``model.parameters()`` order. The loss
+    (with its augmentation) runs in the span ``train.forward``, the
+    gradient in ``train.backward``."""
     def grads(model: torch.nn.Module, batch: torch.Tensor, draws):
-        loss, aux = loss_fn(model, batch, draws)
-        return ({k: v.detach() for k, v in aux.items()},
-                torch.autograd.grad(loss, list(model.parameters())))
+        with span("train.forward"):
+            loss, aux = loss_fn(model, batch, draws)
+        with span("train.backward"):
+            g = torch.autograd.grad(loss, list(model.parameters()))
+        return {k: v.detach() for k, v in aux.items()}, g
 
     return grads
 
@@ -130,12 +135,16 @@ def _step(grads_fn: Callable, group: parallel.Group | None = None) -> Callable:
     """-> ``step(state, batch, draws) -> aux``: one update of ``state.model``
     (``state.opt`` holds its parameters in order). With a ``group``,
     ``batch`` is this rank's rows of the global batch and ``draws`` the
-    step's global draws; the aux terms are this rank's."""
+    step's global draws; the aux terms are this rank's. The gradients' mean
+    over the ranks runs in the span ``train.all_reduce``, Adam in
+    ``train.optim``."""
     def step(state: TrainState, batch: torch.Tensor, draws) -> dict:
         aux, grads = grads_fn(state.model, batch, shard_draws(draws, group))
         if group is not None:
-            parallel.all_reduce_mean_(grads, group)
-        state.opt.step(grads)
+            with span("train.all_reduce"):
+                parallel.all_reduce_mean_(grads, group)
+        with span("train.optim"):
+            state.opt.step(grads)
         state.step += 1
         return aux
 

@@ -514,21 +514,6 @@ class _Clock:
         return next(self._readings)
 
 
-def test_throughput_matches_jax(monkeypatch):
-    readings = [10.0, 12.5, 12.5, 14.0, 15.5]
-    got, want = [], []
-    for module, out in ((tprof, got), (jprof, want)):
-        monkeypatch.setattr(module, "time", _Clock(readings))
-        meter = module.Throughput(n_chips=4)
-        meter.count(300)
-        meter.count(200)
-        out += [meter.poses_per_sec, meter.poses_per_sec_per_chip]
-        meter.reset()
-        meter.count(60)
-        out.append(meter.poses_per_sec)
-    assert got == want == [200.0, 50.0, 40.0]
-
-
 def test_step_time_matches_jax(monkeypatch):
     """The median of the timed calls after the warm-up, as links_tpu's; the
     port's waits on its first output tensor."""
