@@ -215,8 +215,8 @@ K1_BF16_ULP = 2.0 ** -7
 # many elements move: the share of bf16-policy dx, dW1, dW2 elements off by
 # more than K1_FLIP_REL of their own value must stay below K1_FLIP_SHARE. A
 # flipped dh element shifts every dx and dW1 sum that reads it, so those
-# flip in a few percent of elements (at most 4.9%, dW1 at B=4096, observed
-# on an H100); one-term operands flip 25-54%. Each run checks that a
+# flip in a few percent of elements (at most 4.9%, dW1 at B=4096, and 7.2%,
+# dW1 at B=65,536, observed on an H100); one-term operands flip 25-54%. Each run checks that a
 # one-term control, computed here in PyTorch, exceeds the limit.
 K1_FLIP_REL = 1e-5
 K1_FLIP_SHARE = 0.1
@@ -226,6 +226,12 @@ K1_FLIP_SHARE = 0.1
 # --policy/--mode/--scenario, and a 3a rank's augmented shard, 2 x 128),
 # lifter training step (2 x 256), stage-4 step ((2 + 1) x 256), validation
 K1_BATCHES = (1, 37, 128, 256, 512, 768, 4096)
+# The bf16 kernels are held to the same rules at the benchmark's training
+# rows too, where every product runs on the persistent plan (many units per
+# block, dW's K split): stage 4's lifters (16,384), its completers (49,152,
+# and one more row for a ragged last row tile) and 3a's augmented batch
+# (65,536).
+K1_BF16_ROWS = (16384, 49152, 49153, 65536)
 # One training step of each stage, card vs CPU (bf16 policy, batch 64): loss
 # terms within rtol = 1e-3, atol = 1e-4 and each gradient within a relative
 # L2 error of 2e-2. The sides differ by bf16 rounding flips of hidden
@@ -780,13 +786,15 @@ def _k1_f32_backward_check(batch: int, got, dy, x, w1, w2, a1, h, a2) -> tuple[l
 
 def phase_k1_vs_plain() -> tuple[float, float, float, float]:
     """-> (worst forward error, worst backward error) over every batch and
-    policy, the f32 forward's worst error and the f32 backward's."""
+    policy (the bf16 policy at K1_BF16_ROWS too, every product there on the
+    persistent plan), the f32 forward's worst error and the f32 backward's."""
     worst_f = worst_b = worst_f32 = worst_f32_bwd = 0.0
     for policy, pname in ((BF16, "bf16"), (F32, "f32")):
-        for batch in K1_BATCHES:
+        for batch in K1_BATCHES + (K1_BF16_ROWS if policy is BF16 else ()):
             if policy is F32:
                 worst_f32 = max(worst_f32, _k1_f32_forward_check(batch, "K1_BATCHES"))
             x, w1, b1, w2, b2, dy = _k1_inputs(batch, seed=batch)
+            products = dict(K1.bf16_products)
             fwd = K1.res_block_forward(x, w1, b1, w2, b2, policy)
             torch.cuda.synchronize()
             fwd2 = K1.res_block_forward(x, w1, b1, w2, b2, policy)
@@ -808,6 +816,10 @@ def phase_k1_vs_plain() -> tuple[float, float, float, float]:
             torch.cuda.synchronize()
             bwd2 = K1.res_block_backward(dy, xs, w1, w2, a1, hs, a2, policy)
             torch.cuda.synchronize()
+            products = {k: v - products[k] for k, v in K1.bf16_products.items()}
+            if batch in K1_BF16_ROWS and products != {"persistent": 12, "tile": 0}:
+                raise AssertionError(f"res_block bf16 B={batch}: products by plan {products}, "
+                                     f"not all 12 on the persistent plan")
             if policy is F32:
                 errs_b, f32_text = _k1_f32_backward_check(batch, bwd, dy, x, w1, w2, *want[1:])
                 worst_f32_bwd = max(worst_f32_bwd, *errs_b)
@@ -831,7 +843,7 @@ def phase_k1_vs_plain() -> tuple[float, float, float, float]:
                                          f"operands at B={batch}: shares {control}")
                 flips = (f"; flip share dx/dW1/dW2 {' '.join(f'{v:.4f}' for v in kernel)} "
                          f"(one-term control {' '.join(f'{v:.4f}' for v in control)}, "
-                         f"limit {K1_FLIP_SHARE})")
+                         f"limit {K1_FLIP_SHARE}); bf16 products by plan {products}")
             _log(f"[kernel] res_block {pname} B={batch}: max abs err forward "
                  f"y/a1/h{' (bf16 plane)' if policy is BF16 else ''}/a2 "
                  f"{' '.join(f'{e:.2e}' for e in errs_f)}; backward "
@@ -2876,7 +2888,8 @@ def _kernel_breakdown(fn, calls: int = 20):
 def phase_k1_times(smi):
     """K1 forward and backward per call under the bf16 policy at the batches
     of the training steps (stage 4's frozen lifters 256, the lifter steps 2 x
-    256, stage 4's completers 3 x 256) and the validation batch; the f32
+    256, stage 4's completers 3 x 256), the validation batch and the
+    benchmark's training cells' rows (16,384, 49,152, 65,536); the f32
     policy at the same batches (256 is also the serving batch: lift, serve
     and the artifact run chunks of 256; --f32 steps run 512 and 768; the
     validation lifts run f32 at 4096); the f32
@@ -2893,7 +2906,9 @@ def phase_k1_times(smi):
     both = ("forward", "backward")
     for batch, policy, pname, directions in (
             (256, BF16, "bf16", both), (512, BF16, "bf16", both), (768, BF16, "bf16", both),
-            (4096, BF16, "bf16", both), (256, F32, "f32", both), (512, F32, "f32", both),
+            (4096, BF16, "bf16", both), (16384, BF16, "bf16", both),
+            (49152, BF16, "bf16", both), (65536, BF16, "bf16", both),
+            (256, F32, "f32", both), (512, F32, "f32", both),
             (768, F32, "f32", both), (4096, F32, "f32", both), (1, F32, "f32", ("forward",)),
             (VIZ_FRAMES, F32, "f32", ("forward",))):
         x, w1, b1, w2, b2, dy = _k1_inputs(batch, seed=2000 + batch)

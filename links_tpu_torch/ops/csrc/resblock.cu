@@ -48,20 +48,30 @@
 //   - g1: hi and lo planes, written by the dh product's epilogue.
 // Every product is then one GEMM mainloop, C (M x N) = sum over A's terms t of A_t B^T, over a
 // list of term pairs (t, 0): (0, 0) in the forward, (0, 0) and (1, 0) in the backward, so a
-// two-term product is a GEMM whose K is twice as long. A block owns a BM x BN output tile: one
-// producer warp issues cp.async.bulk.tensor (TMA, 128-byte swizzle, 64-deep K tiles) into a
-// ring of 3 or 4 stages of shared memory with a full and an empty mbarrier per stage; one or
-// two consumer warpgroups issue wgmma.mma_async m64nBNk16 (bf16 x bf16 -> f32) on the arrived
-// tiles, keeping one group in flight. Operands contiguous along M or N (W in dh and dx, g and
-// x / h in dW) are read through wgmma's transpose bits from the tiles TMA copied unchanged;
-// rows outside a plane (a ragged batch) arrive as zeros. The epilogue parks the accumulators
-// in the drained ring and writes whole rows from there (bias, lrelu, residual, bf16 rounding
-// of the backward's products, plane writes, the row mask). Two tile shapes: 64 x 64 with one
-// consumer warpgroup, and 128 x 128 with two where that still gives every SM a block (the
-// forward, dh and dx at B = 4096). db1 and db2 are sums of per-16-row column sums, made where
-// g1 and g2 are made (the dh epilogue, split_kernel), in a fixed order. Tensor maps are
-// encoded on the host and kept by address and shape. Launches: forward 3 (split x; a1 and the
-// h plane; a2 and y); backward 6 (split g2; dh -> g1; dW2; dx; dW1; db1 and db2).
+// two-term product is a GEMM whose K is twice as long. One producer warp issues
+// cp.async.bulk.tensor (TMA, 128-byte swizzle, 64-deep K tiles) into a ring of shared memory with
+// a full and an empty mbarrier per stage; consumer warpgroups issue wgmma.mma_async m64nNk16
+// (bf16 x bf16 -> f32) on the arrived tiles, keeping one group in flight. Operands contiguous
+// along M or N (W in dh and dx, g and x / h in dW) are read through wgmma's transpose bits from
+// the tiles TMA copied unchanged; rows outside a plane (a ragged batch) arrive as zeros. The
+// epilogue (bias, lrelu, residual, bf16 rounding of the backward's products, plane writes, the
+// row mask) goes through shared memory, so that it writes whole rows. The plan comes from the
+// host (ops/resblock.py:bf16_plan), per product shape:
+//   - where the product's work fills the card, the persistent kernel (wgmma_gemm_persistent):
+//     one block per SM walks 64 x 256 output tiles, two consumer warpgroups taking them in
+//     turn, so that one tile's epilogue runs under the next tile's loads and products (at B =
+//     49,152 the forward's second product's epilogue moves ~0.7 GB, more time than its
+//     products take at peak). At H = 1024 dW's output is 64 such tiles: its K (the batch) is
+//     split into 2 slices, each a unit of work, and the tile's last slice adds the slices' f32
+//     sums in slice order, so that the bf16 rounding follows the whole sum and runs agree
+//     bitwise;
+//   - else one 64 x 64 tile per block with one consumer warpgroup (wgmma_gemm), which parks its
+//     accumulators in the drained ring (at H = 1024: B <= 1,792, and dW to B = 1,984; widths
+//     that are no multiple of 256).
+// db1 and db2 are sums of per-16-row column sums, made where g1 and g2 are made (the dh
+// epilogue, split_kernel), in a fixed order. Tensor maps are encoded on the host and kept by
+// address and shape. Launches: forward 3 (split x; a1 and the h plane; a2 and y); backward 6
+// (split g2; dh -> g1; dW2; dx; dW1; db1 and db2).
 //
 // f32 forward: the same ring on f32 masters and tf32 wgmma (tf32_gemm). wgmma takes tf32
 // operands only K-major, and both forward products are: x and h by rows, W in torch's (out,
@@ -244,14 +254,19 @@ struct SplitSrc {
   __nv_bfloat16* t[3];
   float* colsum;
 };
-// Up to three operands of one shape, one per blockIdx.z.
+// Up to three operands of one shape, one per blockIdx.z; with zero set, the first block also
+// zeroes n_zero ints there (the slice counters of the call's persistent products that split K).
 struct Split {
   SplitSrc src[3];
   int rows, cols;
+  int* zero;
+  int n_zero;
 };
 
 // A thread owns 4 columns of 16 rows (blockIdx.y) of operand blockIdx.z.
 __global__ void __launch_bounds__(kSplitThreads) split_kernel(__grid_constant__ const Split p) {
+  if (p.zero && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
+    for (int i = threadIdx.x; i < p.n_zero; i += kSplitThreads) p.zero[i] = 0;
   const SplitSrc& q = p.src[blockIdx.z];
   const int c = 4 * (blockIdx.x * kSplitThreads + threadIdx.x);
   if (c >= p.cols) return;
@@ -325,14 +340,20 @@ struct Epi16 {
   int M, N, K;
 };
 
-// The epilogue of the four accumulators at row m, columns n .. n + 3.
+// Whether a product's epilogue reads `aux` (x, a1 or dy).
+__host__ __device__ constexpr bool reads_aux(int epi) {
+  return epi == kFwd2 || epi == kDh || epi == kDx;
+}
+
+// The epilogue of the four accumulators at row m, columns n .. n + 3, given the four values of
+// the bias at n (the forward) and of `aux` at (m, n) (reads_aux).
 template <int EPI>
-__device__ __forceinline__ float4 epilogue4(const Epi16& e, int m, int n, const float4 acc) {
+__device__ __forceinline__ float4 epilogue4(const Epi16& e, int m, int n, const float4 acc,
+                                            const float4 b, const float4 aux) {
   if (m >= e.M) return make_float4(0.f, 0.f, 0.f, 0.f);
   const long long o = static_cast<long long>(m) * e.N + n;
   float v[4] = {acc.x, acc.y, acc.z, acc.w}, r[4];
   if constexpr (EPI == kFwd1 || EPI == kFwd2) {
-    const float4 b = *reinterpret_cast<const float4*>(e.bias + n);
     v[0] += b.x;
     v[1] += b.y;
     v[2] += b.z;
@@ -342,40 +363,48 @@ __device__ __forceinline__ float4 epilogue4(const Epi16& e, int m, int n, const 
 #pragma unroll
       for (int c = 0; c < 4; ++c) r[c] = lrelu(v[c]);
       store_bf16x4(e.plane0 + o, r);  // the h plane
-    } else {
-      const float4 x = ldg4(e.aux + o);
-      r[0] = lrelu(v[0]) + x.x;
-      r[1] = lrelu(v[1]) + x.y;
-      r[2] = lrelu(v[2]) + x.z;
-      r[3] = lrelu(v[3]) + x.w;
+    } else {  // aux: x
+      r[0] = lrelu(v[0]) + aux.x;
+      r[1] = lrelu(v[1]) + aux.y;
+      r[2] = lrelu(v[2]) + aux.z;
+      r[3] = lrelu(v[3]) + aux.w;
       st4(e.out1 + o, r);  // y
     }
   } else {
 #pragma unroll
     for (int c = 0; c < 4; ++c) v[c] = round_bf16(v[c]);  // the backward's products are rounded
     if constexpr (EPI == kDh) {  // g1 = dh * lrelu'(a1): hi and lo planes, and its sums
-      const float4 a = ldg4(e.aux + o);
-      v[0] *= dlrelu(a.x);
-      v[1] *= dlrelu(a.y);
-      v[2] *= dlrelu(a.z);
-      v[3] *= dlrelu(a.w);
+      v[0] *= dlrelu(aux.x);
+      v[1] *= dlrelu(aux.y);
+      v[2] *= dlrelu(aux.z);
+      v[3] *= dlrelu(aux.w);
       store_bf16x4(e.plane0 + o, v);
 #pragma unroll
       for (int c = 0; c < 4; ++c) r[c] = v[c] - round_bf16(v[c]);
       store_bf16x4(e.plane1 + o, r);
       return make_float4(v[0], v[1], v[2], v[3]);  // summed into db1
     } else if constexpr (EPI == kDx) {  // dx = dy + g1 W1
-      const float4 dy = ldg4(e.aux + o);
-      r[0] = dy.x + v[0];
-      r[1] = dy.y + v[1];
-      r[2] = dy.z + v[2];
-      r[3] = dy.w + v[3];
+      r[0] = aux.x + v[0];
+      r[1] = aux.y + v[1];
+      r[2] = aux.z + v[2];
+      r[3] = aux.w + v[3];
       st4(e.out0 + o, r);
     } else {  // dW
       st4(e.out0 + o, v);
     }
   }
   return acc;
+}
+
+// The same, reading the bias and `aux` itself.
+template <int EPI>
+__device__ __forceinline__ float4 epilogue4(const Epi16& e, int m, int n, const float4 acc) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (m >= e.M) return zero;
+  const float4 b = EPI == kFwd1 || EPI == kFwd2 ? *reinterpret_cast<const float4*>(e.bias + n)
+                                                 : zero;
+  return epilogue4<EPI>(e, m, n, acc, b,
+                        reads_aux(EPI) ? ldg4(e.aux + static_cast<long long>(m) * e.N + n) : zero);
 }
 
 // C (M x N) = sum over A's NA term planes t of A_t B^T, K deep. A's tile is WG x 64 rows; each
@@ -539,8 +568,7 @@ struct Planes {
 template <int WG, int TBN, int NA, bool A_MN, bool B_MN, int EPI>
 cudaError_t launch_wgmma(const Planes& p, const Epi16& e, int device, cudaStream_t stream) {
   constexpr int kStageBytes = NA * WG * kAtomBytes + TBN * 128;
-  constexpr int kStages = ring_stages(kStageBytes);
-  constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+  constexpr int kSmem = ring_stages(kStageBytes) * (kStageBytes + 16) + 1024;
   auto kernel = wgmma_gemm<WG, TBN, NA, A_MN, B_MN, EPI>;
   static bool sized[64] = {};
   cudaError_t err = cudaSuccess;
@@ -559,13 +587,359 @@ cudaError_t launch_wgmma(const Planes& p, const Epi16& e, int device, cudaStream
   return cudaGetLastError();
 }
 
-// Picks the tile: 128 x 128 (two consumer warpgroups) where that still gives every SM a block,
-// else 64 x 64 (one).
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// The persistent kernel's work: `units` units, unit u = K slice u / tiles of the output tile
+// u % tiles (row tile (u % tiles) / col_tiles, column tile u % col_tiles). Slice s of nk K tiles
+// takes [s nk / split, (s + 1) nk / split).
+struct Sched {
+  int tiles, col_tiles, split, units;
+  float* partial;  // split > 1: each slice's f32 sums, split x M x N
+  int* count;      // split > 1: the slices done of each output tile, zero at launch
+};
+
+struct Unit {
+  int m0, n0, tile, slice, k_first, k_tiles;
+};
+
+template <int ROWS, int TBN>
+__device__ __forceinline__ Unit unit_at(const Sched& sc, int nk, int u) {
+  Unit w;
+  w.slice = u / sc.tiles;
+  w.tile = u - w.slice * sc.tiles;
+  w.m0 = (w.tile / sc.col_tiles) * ROWS;
+  w.n0 = (w.tile % sc.col_tiles) * TBN;
+  w.k_first = w.slice * nk / sc.split;
+  w.k_tiles = (w.slice + 1) * nk / sc.split - w.k_first;
+  return w;
+}
+
+constexpr int kPersistentThreads = 384;  // two consumer warpgroups and the producer's
+constexpr int kChunk = 64;                // columns of a warp's staging tile
+constexpr int kChunkLd = kChunk + 8;      // floats per staged row: conflict-free 8-byte writes
+
+// The persistent kernel's shared memory past the ring: each consumer warp's 16 x kChunk staging
+// tile, where the product's epilogue goes through one (every product but dW), then a full and
+// an empty barrier per stage and the two consumer warpgroups' flags.
+__host__ __device__ constexpr int persistent_extra(bool staged) {
+  return (staged ? 8 * 16 * kChunkLd * 4 : 0) + 16;
+}
+// The persistent ring: as many stages as a block's shared memory holds, up to 8.
+__host__ __device__ constexpr int persistent_stages(int stage_bytes, bool staged) {
+  return (kMaxSmem - 1024 - persistent_extra(staged)) / (stage_bytes + 16) < 8
+             ? (kMaxSmem - 1024 - persistent_extra(staged)) / (stage_bytes + 16)
+             : 8;
+}
+// The swizzle's alignment slack, the ring and what lies past it.
+__host__ __device__ constexpr int persistent_smem(int stage_bytes, bool staged) {
+  return 1024 + persistent_stages(stage_bytes, staged) * (stage_bytes + 16) +
+         persistent_extra(staged);
+}
+
+// C (M x N) = sum over A's NA term planes t of A_t B^T, K deep, as wgmma_gemm computes it, by
+// gridDim.x persistent blocks (one per SM) that walk the work units u = blockIdx.x, blockIdx.x
+// + gridDim.x, ... A unit is a (64 RM) x TBN output tile, or one K slice of it. The producer
+// warp's TMA ring runs on across units. The block's two consumer warpgroups take its units in
+// turn (the "ping-pong" schedule): one runs a unit's mainloop while the other runs the previous
+// unit's epilogue, so that an epilogue's loads and stores lie under the next unit's loads and
+// products. The ring is not drained then, so each consumer warp has a staging tile of its own;
+// the epilogue issues its loads ahead of its stores, since a warpgroup alone has to keep enough
+// of them in flight (one load per row, waited on in turn, ran the forward's second product at
+// B = 49,152 slower than one tile per block); dW's 4 MB go straight from the registers. A named
+// barrier passes the mainloop from one warpgroup to the other, so that the two never wait on one
+// ring stage a lap apart (a parity wait cannot tell the laps apart). Split K: each slice parks
+// its f32 sums in `partial`, and the last slice of a tile to finish (an integer count per tile:
+// no float atomics) adds the split's sums in slice order and runs the epilogue, so the sum and
+// the bf16 rounding after it do not depend on which slice came last: repeated runs agree
+// bitwise. The producer's registers go to the consumers (setmaxnreg), whose RM x TBN / 2
+// accumulators each hold a whole tile.
+template <int RM, int TBN, int NA, bool A_MN, bool B_MN, int EPI>
+__global__ void __launch_bounds__(kPersistentThreads, 1)
+    wgmma_gemm_persistent(__grid_constant__ const Maps maps, const Epi16 e, const Sched sc) {
+  constexpr int kRows = 64 * RM;
+  constexpr int kABytes = RM * kAtomBytes;  // one term of A's tile
+  constexpr int kStageBytes = NA * kABytes + TBN * 128;
+  constexpr bool kStaged = EPI != kDw;  // dW's 4 MB go straight from the registers
+  constexpr int kStages = persistent_stages(kStageBytes, kStaged);
+  constexpr int kAcc = TBN / 2;  // accumulators per thread of m64 x TBN
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;  // the swizzle's alignment
+  const uint32_t staging = base + kStages * kStageBytes;         // the warps' staging tiles,
+  const uint32_t full0 = staging + persistent_extra(kStaged) - 16;  // kStages full barriers,
+  const uint32_t empty0 = full0 + kStages * 8;                   // then kStages empty ones,
+  volatile int* const last =                                     // then the two flags
+      reinterpret_cast<volatile int*>(smem_raw + (empty0 + kStages * 8 - smem_addr(smem_raw)));
+  const int nk = (e.K + kTK - 1) / kTK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the producer's arrival, plus the bytes
+      mbar_init(empty0 + 8 * s, 4);  // one arrival per warp of the warpgroup that read it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      int it = 0;  // the ring's step, across units
+#pragma unroll 1
+      for (int u = blockIdx.x; u < sc.units; u += gridDim.x) {
+        const Unit w = unit_at<kRows, TBN>(sc, nk, u);
+#pragma unroll 1
+        for (int l = 0; l < w.k_tiles; ++l, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) mbar_wait(empty0 + 8 * s, ((it / kStages) - 1) & 1);
+          const uint32_t st = base + s * kStageBytes, bar = full0 + 8 * s;
+          const int k0 = (w.k_first + l) * kTK;
+          mbar_arrive_expect_tx(bar, kStageBytes);
+#pragma unroll
+          for (int t = 0; t < NA; ++t) {
+            if (A_MN) {
+#pragma unroll
+              for (int r = 0; r < RM; ++r)
+                tma_load(st + t * kABytes + r * kAtomBytes, &maps.a[t], bar, w.m0 + 64 * r, k0);
+            } else {
+              tma_load(st + t * kABytes, &maps.a[t], bar, k0, w.m0);
+            }
+          }
+          const uint32_t sb = st + NA * kABytes;
+          if (B_MN) {
+#pragma unroll
+            for (int j = 0; j < TBN / 64; ++j)
+              tma_load(sb + j * kAtomBytes, &maps.b, bar, w.n0 + 64 * j, k0);
+          } else {
+            tma_load(sb, &maps.b, bar, k0, w.n0);
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  // the consumer warpgroups: wg takes the block's units of even (0) or odd (1) place
+  const int wg = warp / 4;
+  // Descriptors as wgmma_gemm's; each 64-row block r of A's tile lies kAtomBytes apart.
+  constexpr uint32_t kStepA = A_MN ? 2048 : 32, kStepB = B_MN ? 2048 : 32;
+  constexpr uint32_t kLboA = A_MN ? 1024 : 16;
+  constexpr uint32_t kLboB = B_MN ? (TBN > 64 ? kAtomBytes : 1024) : 16;
+  float acc[RM][kAcc];
+  int it = 0, place = 0;
+#pragma unroll 1
+  for (int u = blockIdx.x; u < sc.units; u += gridDim.x, ++place) {
+    const Unit w = unit_at<kRows, TBN>(sc, nk, u);
+    if (place % 2 != wg) {  // the other warpgroup's unit
+      it += w.k_tiles;
+      continue;
+    }
+    // the other warpgroup has waited on every stage of its unit before this one
+    if (place > 0) asm volatile("bar.sync %0, 256;\n" ::"r"(2 + wg) : "memory");
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc[r][i] = 0.f;
+#pragma unroll 1
+    for (int l = 0; l < w.k_tiles; ++l, ++it) {
+      const int s = it % kStages;
+      mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+      const uint32_t st = base + s * kStageBytes;
+#pragma unroll
+      for (int r = 0; r < RM; ++r) fence_regs(acc[r]);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < NA; ++t) {
+#pragma unroll
+        for (int kk = 0; kk < kTK / 16; ++kk) {
+          const uint32_t b = st + NA * kABytes + kk * kStepB;
+#pragma unroll
+          for (int r = 0; r < RM; ++r) {
+            const uint32_t a = st + t * kABytes + r * kAtomBytes + kk * kStepA;
+            wgmma<TBN, A_MN, B_MN>(acc[r], smem_desc(a, kLboA, 1024), smem_desc(b, kLboB, 1024));
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous step's products are done: release its stage
+#pragma unroll
+      for (int r = 0; r < RM; ++r) fence_regs(acc[r]);
+      if (l > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+    }
+    // hand the mainloop to the other warpgroup, if the block has a next unit
+    if (u + gridDim.x < sc.units) asm volatile("bar.arrive %0, 256;\n" ::"r"(3 - wg) : "memory");
+    wgmma_wait<0>();
+#pragma unroll
+    for (int r = 0; r < RM; ++r) fence_regs(acc[r]);
+    if (w.k_tiles > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+
+    // Accumulator j of a thread lies at row lane / 4 (+ 8 for j % 4 >= 2), column 8 (j / 4) +
+    // 2 (lane % 4) + j % 2 of its warp's 16 rows of each 64-row block r.
+    const int row = w.m0 + 16 * (warp % 4) + lane / 4, col = w.n0 + 2 * (lane % 4);
+    if (sc.split > 1) {  // park this slice's sums; the tile's last slice adds them in order
+      const long long plane = static_cast<long long>(e.M) * e.N;
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int i = 0; i < kAcc / 2; ++i) {  // pair i: row + 8 (i % 2), column col + 8 (i / 2)
+          const int m = row + 64 * r + 8 * (i % 2);
+          if (m < e.M)
+            st2(sc.partial + w.slice * plane + static_cast<long long>(m) * e.N + col + 8 * (i / 2),
+                acc[r][2 * i], acc[r][2 * i + 1]);
+        }
+      __threadfence();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(4 + wg) : "memory");
+      if (threadIdx.x % 128 == 0) last[wg] = atomicAdd(sc.count + w.tile, 1) == sc.split - 1;
+      asm volatile("bar.sync %0, 128;\n" ::"r"(4 + wg) : "memory");
+      if (!last[wg]) continue;
+      __threadfence();
+#pragma unroll 1
+      for (int q = 0; q < sc.split; ++q) {  // slice 0's sums, then each next slice's added
+        const float* const part = sc.partial + q * plane;
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+#pragma unroll
+          for (int i = 0; i < kAcc / 2; ++i) {
+            const int m = row + 64 * r + 8 * (i % 2);
+            if (m >= e.M) continue;
+            const float2 v = __ldcg(reinterpret_cast<const float2*>(
+                part + static_cast<long long>(m) * e.N + col + 8 * (i / 2)));
+            acc[r][2 * i] = q ? acc[r][2 * i] + v.x : v.x;
+            acc[r][2 * i + 1] = q ? acc[r][2 * i + 1] + v.y : v.y;
+          }
+      }
+    }
+    if constexpr (!kStaged) {  // dW: rounded to bf16, straight from the registers
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int i = 0; i < kAcc / 2; ++i) {
+          const int m = row + 64 * r + 8 * (i % 2);
+          if (m < e.M)
+            st2(e.out0 + static_cast<long long>(m) * e.N + col + 8 * (i / 2),
+                round_bf16(acc[r][2 * i]), round_bf16(acc[r][2 * i + 1]));
+        }
+      continue;
+    }
+    // The other products through the warp's staging tile, as wgmma_gemm's epilogue: kChunk
+    // columns of the warp's 16 rows at a time, parked and read back as whole rows of float4s,
+    // so that every load and store of device memory is 16 bytes and a warp's reach whole
+    // 128-byte lines.
+    float* const tile = reinterpret_cast<float*>(smem_raw + (staging - smem_addr(smem_raw))) +
+                        warp * 16 * kChunkLd;
+    constexpr int kRowsPerStep = 128 / kChunk;  // a warp's 32 float4s cover this many rows
+    const int c4 = 4 * (lane % (kChunk / 4));
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int row0 = w.m0 + 64 * r + 16 * (warp % 4);
+#pragma unroll
+      for (int c = 0; c < TBN / kChunk; ++c) {
+#pragma unroll
+        for (int j = 0; j < kChunk / 8; ++j) {
+          const int a = 4 * (c * kChunk / 8 + j);
+          float* p = tile + (lane / 4) * kChunkLd + 8 * j + 2 * (lane % 4);
+          *reinterpret_cast<float2*>(p) = make_float2(acc[r][a], acc[r][a + 1]);
+          *reinterpret_cast<float2*>(p + 8 * kChunkLd) = make_float2(acc[r][a + 2], acc[r][a + 3]);
+        }
+        // the chunk's bias and aux values first: loads issued together, ahead of the stores
+        // (which the compiler may not move them past)
+        const int n = w.n0 + c * kChunk + c4;
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 b = EPI == kFwd1 || EPI == kFwd2 ? ldg4(e.bias + n) : zero;
+        float4 aux[16 / kRowsPerStep];
+#pragma unroll
+        for (int i = 0; i < 16 / kRowsPerStep; ++i) {
+          const int m = row0 + i * kRowsPerStep + lane / (kChunk / 4);
+          aux[i] = reads_aux(EPI) && m < e.M ? ldg4(e.aux + static_cast<long long>(m) * e.N + n)
+                                             : zero;
+        }
+        __syncwarp();
+        float4 sum = zero;
+#pragma unroll
+        for (int i = 0; i < 16 / kRowsPerStep; ++i) {
+          const int rr = i * kRowsPerStep + lane / (kChunk / 4);
+          const float4 v = *reinterpret_cast<const float4*>(tile + rr * kChunkLd + c4);
+          const float4 g = epilogue4<EPI>(e, row0 + rr, n, v, b, aux[i]);
+          sum = make_float4(sum.x + g.x, sum.y + g.y, sum.z + g.z, sum.w + g.w);
+        }
+        if constexpr (EPI == kDh) {  // the column sums of the warp's 16 rows of g1, for db1
+          sum.x += __shfl_xor_sync(0xffffffffu, sum.x, 16);  // the two half warps' rows
+          sum.y += __shfl_xor_sync(0xffffffffu, sum.y, 16);
+          sum.z += __shfl_xor_sync(0xffffffffu, sum.z, 16);
+          sum.w += __shfl_xor_sync(0xffffffffu, sum.w, 16);
+          if (row0 < e.M && lane < kChunk / 4)
+            *reinterpret_cast<float4*>(e.colsum + static_cast<long long>(row0 / kSumRows) * e.N +
+                                       w.n0 + c * kChunk + c4) = sum;
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+// A product's plan (ops/resblock.py:bf16_plan): one tile per block (wgmma_gemm), or the
+// persistent kernel's tile, K split and grid.
+struct Bf16Plan {
+  int persistent, rows, cols, split, grid;
+};
+
+// The output tiles of a product on `plan`'s tile.
+int plan_tiles(const Bf16Plan& plan, int M, int N) {
+  return (M + plan.rows - 1) / plan.rows * (N / plan.cols);
+}
+
+template <int RM, int TBN, int NA, bool A_MN, bool B_MN, int EPI>
+cudaError_t launch_persistent(const Planes& p, const Epi16& e, const Bf16Plan& plan,
+                              float* partial, int* count, int device, cudaStream_t stream) {
+  constexpr int kSmem = persistent_smem(NA * RM * kAtomBytes + TBN * 128, EPI != kDw);
+  static_assert(kSmem <= kMaxSmem, "the ring fits a block");
+  Sched sc = {};
+  sc.col_tiles = e.N / TBN;
+  sc.tiles = plan_tiles(plan, e.M, e.N);
+  sc.split = plan.split;
+  sc.units = sc.tiles * plan.split;
+  sc.partial = partial;
+  sc.count = count;
+  if (e.N % TBN || plan.split < 1 || plan.split > (e.K + kTK - 1) / kTK || plan.grid < 1 ||
+      plan.grid > sc.units || (plan.split > 1 && (!partial || !count)))
+    return cudaErrorInvalidValue;
+  auto kernel = wgmma_gemm_persistent<RM, TBN, NA, A_MN, B_MN, EPI>;
+  static bool sized[64] = {};
+  cudaError_t err = cudaSuccess;
+  if (device < 0 || device >= 64 || !sized[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    if (device >= 0 && device < 64) sized[device] = true;
+  }
+  Maps maps = {};
+  for (int t = 0; t < NA && err == cudaSuccess; ++t)
+    err = plane_map(&maps.a[t], p.a[t], p.a_rows, p.a_cols, A_MN ? 64 : 64 * RM);
+  if (err == cudaSuccess) err = plane_map(&maps.b, p.b, p.b_rows, p.b_cols, B_MN ? 64 : TBN);
+  if (err != cudaSuccess) return err;
+  kernel<<<plan.grid, kPersistentThreads, kSmem, stream>>>(maps, e, sc);
+  return cudaGetLastError();
+}
+
+// One product on its plan's tile (ops/resblock.py:BF16_KERNELS lists the tiles built here:
+// (persistent, rows, cols)). `partial` and `count` serve a persistent plan that splits K.
 template <int NA, bool A_MN, bool B_MN, int EPI>
-cudaError_t run_wgmma(const Planes& p, const Epi16& e, int device, cudaStream_t stream) {
-  const bool large = e.N % 128 == 0 && ((e.M + 127) / 128) * (e.N / 128) >= sm_count(device);
-  return large ? launch_wgmma<2, 128, NA, A_MN, B_MN, EPI>(p, e, device, stream)
-               : launch_wgmma<1, 64, NA, A_MN, B_MN, EPI>(p, e, device, stream);
+cudaError_t run_wgmma(const Planes& p, const Epi16& e, const Bf16Plan& plan, float* partial,
+                      int* count, int device, cudaStream_t stream) {
+#define K1_BF16_TILE(ROWS, COLS)                                                        \
+  if (!plan.persistent && plan.rows == ROWS && plan.cols == COLS && plan.split == 1) \
+    return launch_wgmma<ROWS / 64, COLS, NA, A_MN, B_MN, EPI>(p, e, device, stream);
+#define K1_BF16_PERSISTENT(ROWS, COLS)                                                     \
+  if (plan.persistent && plan.rows == ROWS && plan.cols == COLS)                        \
+    return launch_persistent<ROWS / 64, COLS, NA, A_MN, B_MN, EPI>(p, e, plan, partial, count, \
+                                                                    device, stream);
+  K1_BF16_TILE(64, 64)
+  K1_BF16_PERSISTENT(64, 256)
+#undef K1_BF16_TILE
+#undef K1_BF16_PERSISTENT
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------------------------
@@ -1435,12 +1809,17 @@ int res_block_split(const void* v, const void* mask, void* t0, void* t1, void* t
 }
 
 // The bf16 policy's forward for x (B, H), given the bf16 planes of W1 and W2: writes the x
-// plane, a1, the h plane, a2 (saved for the backward) and y. Three launches on `stream`.
+// plane, a1, the h plane, a2 (saved for the backward) and y, both products on the plan
+// (persistent, rows, cols, k_split, grid) of ops/resblock.py:bf16_plan. Where the plan splits K,
+// `partial` holds k_split x B x H f32 and `count` 2 x its tiles ints (zeroed by the x split).
+// Three launches on `stream`.
 int res_block_forward_bf16(const void* x, const void* w1, const void* b1, const void* w2,
-                           const void* b2, void* xp, void* a1, void* hp, void* a2, void* y, int B,
-                           int H, int device, void* stream) {
+                           const void* b2, void* xp, void* a1, void* hp, void* a2, void* y,
+                           void* partial, void* count, int B, int H, int persistent, int rows,
+                           int cols, int k_split, int grid, int device, void* stream) {
   if (bad_shape(B, H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Bf16Plan plan = {persistent, rows, cols, k_split, grid};
   Epi16 l1 = {};
   l1.out0 = static_cast<float*>(a1);
   l1.plane0 = static_cast<__nv_bfloat16*>(hp);
@@ -1455,10 +1834,16 @@ int res_block_forward_bf16(const void* x, const void* w1, const void* b1, const 
   l2.aux = static_cast<const float*>(x);
   const Planes p1 = {{xp, nullptr}, B, H, w1, H, H};  // A = x (B x H), B(n, k) = W1[n, k]
   const Planes p2 = {{hp, nullptr}, B, H, w2, H, H};
+  float* part = static_cast<float*>(partial);
+  int* c1 = k_split > 1 ? static_cast<int*>(count) : nullptr;
+  int* c2 = c1 ? c1 + plan_tiles(plan, B, H) : nullptr;
+  Split sx = one_split(x, nullptr, xp, nullptr, nullptr, nullptr, B, H);
+  sx.zero = c1;
+  sx.n_zero = c1 ? 2 * plan_tiles(plan, B, H) : 0;
   return on_device(device, [&]() {
-    cudaError_t e = split(one_split(x, nullptr, xp, nullptr, nullptr, nullptr, B, H), 1, s);
-    if (e == cudaSuccess) e = run_wgmma<1, false, false, kFwd1>(p1, l1, device, s);
-    if (e == cudaSuccess) e = run_wgmma<1, false, false, kFwd2>(p2, l2, device, s);
+    cudaError_t e = split(sx, 1, s);
+    if (e == cudaSuccess) e = run_wgmma<1, false, false, kFwd1>(p1, l1, plan, part, c1, device, s);
+    if (e == cudaSuccess) e = run_wgmma<1, false, false, kFwd2>(p2, l2, plan, part, c2, device, s);
     return e;
   });
 }
@@ -1466,14 +1851,22 @@ int res_block_forward_bf16(const void* x, const void* w1, const void* b1, const 
 // The bf16 policy's backward: from dy (f32), the saved x and h planes, a1 and a2 (f32) and the
 // planes of W1 and W2, writes dx (B, H), dW1, dW2 (H, H, torch layout), db1, db2 (H), using as
 // scratch four (B, H) bf16 planes (g2's hi and lo, g1's hi and lo) and the column sums of each
-// 16 rows of g1 and of g2 (two f32 ceil(B / 16) x H). Six launches on `stream`.
+// 16 rows of g1 and of g2 (two f32 ceil(B / 16) x H). dh and dx run on the plan (act_*) of
+// ops/resblock.py:bf16_plan, dW1 and dW2 on (w_*). Where a plan splits K, `partial` holds split
+// x (its product's M x N) f32 and `count` the slice counters of dh, dx, dW2 and dW1 in turn (the
+// tiles of each product; zeroed by the g2 split). Six launches on `stream`.
 int res_block_backward_bf16(const void* dy, const void* xp, const void* w1, const void* w2,
                             const void* a1, const void* hp, const void* a2, void* g2hi,
-                            void* g2lo, void* g1hi, void* g1lo, void* sums1, void* sums2, void* dx,
-                            void* dw1, void* db1, void* dw2, void* db2, int B, int H, int device,
+                            void* g2lo, void* g1hi, void* g1lo, void* sums1, void* sums2,
+                            void* partial, void* count, void* dx, void* dw1, void* db1,
+                            void* dw2, void* db2, int B, int H, int act_persistent, int act_rows,
+                            int act_cols, int act_split, int act_grid, int w_persistent,
+                            int w_rows, int w_cols, int w_split, int w_grid, int device,
                             void* stream) {
   if (bad_shape(B, H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Bf16Plan act = {act_persistent, act_rows, act_cols, act_split, act_grid};
+  const Bf16Plan wgt = {w_persistent, w_rows, w_cols, w_split, w_grid};
   // g1 = round(g2 W2) * lrelu'(a1): A = g2 (B x H), B(n, k) = W2[k, n] (N-contiguous); its
   // planes, and its column sums for db1
   Epi16 edh = {};
@@ -1502,16 +1895,35 @@ int res_block_backward_bf16(const void* dy, const void* xp, const void* w1, cons
   Epi16 edw1 = edw2;
   edw1.out0 = static_cast<float*>(dw1);
   const Planes pdw1 = {{g1hi, g1lo}, B, H, xp, B, H};
+  float* part = static_cast<float*>(partial);
+  const int act_tiles = plan_tiles(act, B, H), w_tiles = plan_tiles(wgt, H, H);
+  int* const c = static_cast<int*>(count);
+  int* const cdh = c && act_split > 1 ? c : nullptr;
+  int* const cdx = cdh ? c + act_tiles : nullptr;
+  int* const cdw2 = c && w_split > 1 ? c + 2 * act_tiles : nullptr;
+  int* const cdw1 = cdw2 ? cdw2 + w_tiles : nullptr;
+  Split sg = one_split(dy, a2, g2hi, g2lo, nullptr, sums2, B, H);
+  sg.zero = c;
+  sg.n_zero = c ? 2 * (act_tiles + w_tiles) : 0;
   return on_device(device, [&]() {
-    cudaError_t e = split(one_split(dy, a2, g2hi, g2lo, nullptr, sums2, B, H), 1, s);
-    if (e == cudaSuccess) e = run_wgmma<2, false, true, kDh>(pdh, edh, device, s);
-    if (e == cudaSuccess) e = run_wgmma<2, true, true, kDw>(pdw2, edw2, device, s);
-    if (e == cudaSuccess) e = run_wgmma<2, false, true, kDx>(pdx, edx, device, s);
-    if (e == cudaSuccess) e = run_wgmma<2, true, true, kDw>(pdw1, edw1, device, s);
+    cudaError_t e = split(sg, 1, s);
+    if (e == cudaSuccess) e = run_wgmma<2, false, true, kDh>(pdh, edh, act, part, cdh, device, s);
+    if (e == cudaSuccess) e = run_wgmma<2, true, true, kDw>(pdw2, edw2, wgt, part, cdw2, device, s);
+    if (e == cudaSuccess) e = run_wgmma<2, false, true, kDx>(pdx, edx, act, part, cdx, device, s);
+    if (e == cudaSuccess) e = run_wgmma<2, true, true, kDw>(pdw1, edw1, wgt, part, cdw1, device, s);
     if (e == cudaSuccess)
       e = bias_grads(sums1, sums2, db1, db2, (B + kSumRows - 1) / kSumRows, H, s);
     return e;
   });
+}
+
+// A block's dynamic shared memory on the bf16 plan's tile (persistent, rows, cols) for a
+// product of `terms` A planes (1: the forward's, 2: the backward's): what
+// ops/resblock.py:bf16_smem_bytes computes.
+int res_block_bf16_smem_bytes(int persistent, int rows, int cols, int terms, int staged) {
+  const int stage = terms * rows * 128 + cols * 128;
+  if (persistent) return persistent_smem(stage, staged);
+  return ring_stages(stage) * (stage + 16) + 1024;
 }
 
 const char* res_block_error_string(int err) {

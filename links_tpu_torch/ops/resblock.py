@@ -22,7 +22,11 @@ Under ``BF16`` the kernels read every matmul operand as bf16 planes: a
 weight's plane comes from ``weight_plane`` (one cast per weight version),
 x's from the split kernel (``split_planes``), h's from the forward's first
 product; an f32 gradient enters as two planes, hi and lo (16 significant
-bits). The forward then saves the x and h planes instead of x and h.
+bits). The forward then saves the x and h planes instead of x and h. Each
+product runs on ``bf16_plan``'s plan, a function of its shape and the SM
+count: the persistent kernel where its tiles (or, for dW, the K slices of
+its tiles) fill the card, else one tile per block; ``bf16_products``
+counts the products by plan.
 
 Under ``F32`` the forward multiplies in three TF32 passes (~22 significant
 bits per product, never one pass): each operand v is big + small, big =
@@ -85,6 +89,17 @@ F32_BWD_TILES = ((2, 128, 32), (1, 64, 64))
 F32_BWD_SPLITS = (1, 2)
 F32_BWD_MIN_TILES = 2  # K tiles a block of a split keeps at least
 F32_BWD_MAX_STAGES = 8
+# The bf16 route's tiles (persistent, rows, cols), as its kernels build them
+# (csrc/resblock.cu:run_wgmma): one output tile per block (wgmma_gemm), and the persistent
+# kernel's (wgmma_gemm_persistent, one consumer warpgroup per tile); the persistent tile
+# bf16_plan takes (64 x 256 ran every product faster than 128 x 128 at B = 1,856 to 65,536
+# on an H100), its K splits in the order it tries them (2 fills the card with dW's tiles at
+# hidden 1024), and the K tiles (64 deep) a slice keeps at least.
+BF16_KERNELS = frozenset({(False, 64, 64), (True, 64, 256)})
+BF16_PERSISTENT = (64, 256)
+BF16_SPLITS = (1, 2)
+BF16_MIN_SLICE = 16
+BF16_TK = 64  # the bf16 route's K tile
 
 
 def _is_bf16(policy: Policy) -> bool:
@@ -400,6 +415,83 @@ def f32_bwd_plans(batch: int, hidden: int, sms: int) -> tuple[F32BwdPlan, F32Bwd
     return f32_bwd_plan(batch, hidden, hidden, sms), f32_bwd_plan(hidden, hidden, batch, sms)
 
 
+class Bf16Plan(NamedTuple):
+    persistent: bool  # one block per SM walking work units, else one output tile per block
+    rows: int        # output tile rows
+    cols: int        # output tile columns (wgmma's n)
+    split: int       # K slices per output tile, added in slice order (persistent only)
+    row_tiles: int
+    col_tiles: int
+    units: int       # work units: output tiles x K slices
+    grid: int        # blocks of the product
+
+
+def bf16_smem_bytes(persistent: bool, rows: int, cols: int, terms: int,
+                    staged: bool = True) -> int:
+    """A block's dynamic shared memory on a bf16 tile for a product of
+    ``terms`` A planes (the kernel's res_block_bf16_smem_bytes): the
+    swizzle's alignment slack, then stages of a 64-deep K tile of A's planes
+    and of B, each with a full and an empty barrier. One tile per block: 3
+    stages where they fit 96 KB (two blocks per SM), else 4. The persistent
+    kernel: as many as a block holds, to 8, beside the consumer warps' 16 x
+    72 f32 staging tiles (``staged``: every product but dW) and two flags."""
+    stage = (terms * rows + cols) * 128
+    if not persistent:
+        return 1024 + (3 if 96 * 1024 // stage == 3 else 4) * (stage + 16)
+    extra = (8 * 16 * 72 * 4 if staged else 0) + 16
+    stages = min(8, (SMEM_BYTES - 1024 - extra) // (stage + 16))
+    return 1024 + stages * (stage + 16) + extra
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_plan(m: int, n: int, k: int, sms: int) -> Bf16Plan:
+    """The bf16 route's plan for one product C (m x n), k deep, on a card
+    with ``sms`` SMs. The persistent kernel's tile (``BF16_PERSISTENT``, one
+    consumer warpgroup per tile, two per block taking units in turn) where
+    its work units fill the card, leaving at most 1/8 of the SMs without
+    one: the output tiles, or each split into the fewest K slices of
+    ``BF16_SPLITS`` that do, each slice keeping ``BF16_MIN_SLICE`` K tiles;
+    min(sms, units) blocks. Else one 64 x 64 tile per block."""
+    if m < 1 or k < 1 or n < _TILE or n % _TILE:
+        raise ValueError(f"no bf16 plan for a {m} x {n} product {k} deep")
+    fill, nk = sms - sms // 8, -(-k // BF16_TK)
+    rows, cols = BF16_PERSISTENT
+    if n % cols == 0:
+        row_tiles, col_tiles = -(-m // rows), n // cols
+        for split in BF16_SPLITS:
+            if split > 1 and nk // split < BF16_MIN_SLICE:
+                break
+            units = row_tiles * col_tiles * split
+            if units >= fill:
+                return Bf16Plan(True, rows, cols, split, row_tiles, col_tiles, units,
+                                min(sms, units))
+    row_tiles, col_tiles = -(-m // _TILE), n // _TILE
+    tiles = row_tiles * col_tiles
+    return Bf16Plan(False, _TILE, _TILE, 1, row_tiles, col_tiles, tiles, tiles)
+
+
+def bf16_plans(batch: int, hidden: int, sms: int) -> tuple[Bf16Plan, Bf16Plan]:
+    """The bf16 plans of the forward's products and of dh and dx (B x H, H
+    deep), and of dW1 and dW2 (H x H, B deep)."""
+    return bf16_plan(batch, hidden, hidden, sms), bf16_plan(hidden, hidden, batch, sms)
+
+
+def bf16_units(p: Bf16Plan, k: int):
+    """The work units of a product on plan ``p``, K ``k`` deep, in the order
+    the kernel numbers them: (row tile, column tile, K slice, first K tile,
+    K tiles). A persistent block takes units blockIdx, blockIdx + grid, ...;
+    slice s of nk K tiles takes [s nk / split, (s + 1) nk / split)."""
+    nk, tiles = -(-k // BF16_TK), p.row_tiles * p.col_tiles
+    for u in range(p.units):
+        s, t = divmod(u, tiles)
+        first = s * nk // p.split
+        yield t // p.col_tiles, t % p.col_tiles, s, first, (s + 1) * nk // p.split - first
+
+
+def _bf16_args(p: Bf16Plan) -> tuple[int, ...]:
+    return int(p.persistent), p.rows, p.cols, p.split, p.grid
+
+
 _LIB = None
 # CUDA kernel launches of one call of the forward and the backward, by policy (True: bf16);
 # the f32 forward launches one less where its plan makes A's small tiles in shared memory
@@ -413,10 +505,10 @@ def _lib():
 
         lib = _build.load("resblock")
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name, pointers in (("res_block_forward_bf16", 10), ("res_block_backward_bf16", 18)):
-            getattr(lib, name).argtypes = [p] * pointers + [i] * 3 + [p]
-            getattr(lib, name).restype = i
-        for name, argtypes in (("res_block_forward_f32", [p] * 13 + [i] * 10 + [p]),
+        for name, argtypes in (("res_block_forward_bf16", [p] * 12 + [i] * 8 + [p]),
+                               ("res_block_backward_bf16", [p] * 20 + [i] * 13 + [p]),
+                               ("res_block_bf16_smem_bytes", [i] * 5),
+                               ("res_block_forward_f32", [p] * 13 + [i] * 10 + [p]),
                                ("res_block_backward_f32", [p] * 13 + [i] * 13 + [p]),
                                ("res_block_split", [p] * 5 + [i] * 3 + [p]),
                                ("res_block_f32_bwd_smem_bytes", [i] * 4),
@@ -600,11 +692,16 @@ def res_block_forward(x, w1, b1, w2, b2, policy: Policy):
     launches = _LAUNCHES["forward"][bf16]
     y, a1, a2 = (torch.empty(n, hid, device=dev) for _ in range(3))
     if bf16:
+        p = bf16_plan(n, hid, hid, _sms(index))
         x_saved, h = (torch.empty(n, hid, dtype=torch.bfloat16, device=dev) for _ in "xh")
+        split_buf, partial, count = _split_scratch(dev, (p, n, hid), (p, n, hid))
         err = _lib().res_block_forward_bf16(
             x.data_ptr(), weight_plane(w1).data_ptr(), b1.data_ptr(),
             weight_plane(w2).data_ptr(), b2.data_ptr(), x_saved.data_ptr(), a1.data_ptr(),
-            h.data_ptr(), a2.data_ptr(), y.data_ptr(), n, hid, index, _stream(dev))
+            h.data_ptr(), a2.data_ptr(), y.data_ptr(), partial, count, n, hid, *_bf16_args(p),
+            index, _stream(dev))
+        del split_buf  # kept until the launches were queued
+        plans = (p, p)
     else:
         p = f32_plan(n, hid, _sms(index))
         launches -= p.a_split
@@ -618,10 +715,32 @@ def res_block_forward(x, w1, b1, w2, b2, policy: Policy):
             h.data_ptr(), a2.data_ptr(), y.data_ptr(), n, hid, p.wg, p.kw, p.cols, p.a_rows,
             p.chunk, p.stages, p.a_split, index, _stream(dev))
     _raise_on(err, "res_block_forward launch")
+    if bf16:
+        _count_products(plans)
     res_block_forward.launches += 1
     res_block_forward.f32_launches += not bf16
     res_block_forward.kernel_launches += launches
     return y, a1, h, a2, x_saved
+
+
+def _split_scratch(dev, *products) -> tuple[torch.Tensor | None, int | None, int | None]:
+    """The scratch of a call's bf16 products (plan, M, N), in launch order,
+    where a plan splits K: the slices' f32 sums (split x M x N, the largest
+    such product's; the products run one after another) and one int per
+    output tile of every product (the slice counters, zeroed by the call's
+    first launch). -> (the buffer, to keep until the launches are queued,
+    the sums' address, the counters'), or Nones where no plan splits."""
+    if all(p.split == 1 for p, _, _ in products):
+        return None, None, None
+    floats = max(p.split * m * n for p, m, n in products if p.split > 1)
+    ints = sum(p.row_tiles * p.col_tiles for p, _, _ in products)
+    scratch = torch.empty(floats + ints, dtype=torch.float32, device=dev)
+    return scratch, scratch.data_ptr(), scratch.data_ptr() + 4 * floats
+
+
+def _count_products(plans):
+    for p in plans:
+        bf16_products["persistent" if p.persistent else "tile"] += 1
 
 
 def _bwd_args(p: F32BwdPlan) -> tuple[int, ...]:
@@ -645,17 +764,21 @@ def res_block_backward(dy, x, w1, w2, a1, h, a2, policy: Policy):
     dw1, dw2 = (torch.empty(hid, hid, device=dev) for _ in range(2))
     db1, db2 = (torch.empty(hid, device=dev) for _ in range(2))
     if bf16:
+        p_act, p_w = bf16_plans(n, hid, _sms(index))
         # one scratch buffer: g2's hi and lo planes, g1's hi and lo planes, then the column
         # sums of each 16 rows of g1 and of g2 (f32, for db1 and db2)
         plane, sums = n * hid * 2, -(-n // 16) * hid * 4
         scratch = torch.empty(4 * plane + 2 * sums, dtype=torch.uint8, device=dev)
         base = scratch.data_ptr()
         ptrs = [base + i * plane for i in range(4)] + [base + 4 * plane + i * sums for i in (0, 1)]
+        split_buf, partial, count = _split_scratch(dev, (p_act, n, hid), (p_act, n, hid),
+                                                   (p_w, hid, hid), (p_w, hid, hid))
         err = _lib().res_block_backward_bf16(
             dy.data_ptr(), x.data_ptr(), weight_plane(w1).data_ptr(),
             weight_plane(w2).data_ptr(), a1.data_ptr(), h.data_ptr(), a2.data_ptr(), *ptrs,
-            dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), n,
-            hid, index, _stream(dev))
+            partial, count, dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+            db2.data_ptr(), n, hid, *_bf16_args(p_act), *_bf16_args(p_w), index, _stream(dev))
+        del split_buf  # kept until the launches were queued
     else:
         plan_act, plan_w = f32_bwd_plans(n, hid, _sms(index))
         # one scratch buffer: the three term planes of g2, g1, x and h (bf16), then the column
@@ -668,6 +791,8 @@ def res_block_backward(dy, x, w1, w2, a1, h, a2, policy: Policy):
             dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), n, hid,
             *_bwd_args(plan_act), *_bwd_args(plan_w), index, _stream(dev))
     _raise_on(err, "res_block_backward launch")
+    if bf16:
+        _count_products((p_act, p_act, p_w, p_w))
     res_block_backward.launches += 1
     res_block_backward.f32_launches += not bf16
     res_block_backward.kernel_launches += _LAUNCHES["backward"][bf16]
@@ -680,6 +805,9 @@ res_block_backward.launches = 0  # calls that launched the backward kernels
 res_block_backward.f32_launches = 0  # those of them under F32 (the three-term kernel)
 res_block_forward.kernel_launches = 0   # CUDA kernels those calls launched
 res_block_backward.kernel_launches = 0
+# bf16 products (2 per forward call, 4 per backward call) by plan: the persistent kernel's, or
+# today's one tile per block
+bf16_products = {"persistent": 0, "tile": 0}
 
 
 def kernel_saved(x, a1, h, a2, policy: Policy):

@@ -11,10 +11,12 @@ policy, full-width lifters and flows, random weights from a seed) in ms per
 step on the host clock over 20 steps after warm-up, the card's busy ms and
 kernel launches per step (``torch.profiler`` over 5 steps), the step's ms
 again after that profiler session (it leaves the process slower), K1 under
-bf16 at B = 512 and 4096: forward and backward device ms per call from a
-CUDA graph of the wrapper's calls, eager ms per call (CUDA events around 50
+bf16 at B = 512 and 4096 and at the benchmark's training rows (16,384,
+49,152 and 65,536): forward and backward device ms per call from a CUDA
+graph of the wrapper's calls, eager ms per call (CUDA events around 50
 calls) and the wrapper's host ms per call (the least of 5 runs of 20
-enqueues), K1's f32 forward at B = 1, 50, 256 and 4096 the same way, with
+enqueues), with the count of those calls' bf16 products by plan (where the
+package counts them), K1's f32 forward at B = 1, 50, 256 and 4096 the same way, with
 the largest error of each of its outputs y, a1, h, a2 against the plain f32
 forward (TF32 off), over that output's largest value, and K1's f32 backward
 at B = 256, 512, 768 and 4096 the same way, with the largest error of each
@@ -138,7 +140,9 @@ def _one(tree: str) -> dict:
         out[f"{name}_eager_ms"] = events_ms(fn)
         out[f"{name}_host_ms"] = host_ms(fn)
 
-    for rows in (512, 4096):
+    products = getattr(K1, "bf16_products", None)
+    before = dict(products or {})
+    for rows in (512, 4096, 16384, 49152, 65536):
         x, w1, b1, w2, b2, dy = block_inputs(rows)
         want = K1.res_block_forward_reference(x, w1, b1, w2, b2, BF16)
         # the saved tensors of each version's kernel backward
@@ -146,6 +150,8 @@ def _one(tree: str) -> dict:
                  else (x, *want[1:]))
         timed(f"fwd{rows}", lambda: K1.res_block_forward(x, w1, b1, w2, b2, BF16))
         timed(f"bwd{rows}", lambda: K1.res_block_backward(dy, saved[0], w1, w2, *saved[1:], BF16))
+    if products is not None:
+        out["bf16_products"] = {k: v - before[k] for k, v in products.items()}
     for rows in (1, 50, 256, 4096):
         x, w1, b1, w2, b2, _ = block_inputs(rows)
         got = K1.res_block_forward(x, w1, b1, w2, b2, F32)

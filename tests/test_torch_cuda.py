@@ -211,6 +211,53 @@ def test_res_block_kernel_launches_per_call(cuda, policy, launches):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden", [(256, 1024), (16384, 1024), (49152, 1024),
+                                          (49153, 1024), (65536, 1024), (768, 2048)])
+def test_bf16_kernels_hold_the_plain_version_on_their_plan(cuda, batch, hidden):
+    """The bf16 forward and backward against the plain version by the card's
+    rules (the backward's rounded products within one bf16 unit, under 10%
+    of elements moved), two runs bitwise equal, and every product on the
+    plan's kernel: the persistent one at the training cells' rows (49,153:
+    a ragged last row tile; dW's K split) and at hidden 2048, B = 768 (the
+    batch-wide products' K split, db1's sums through the last slice),
+    today's tile at 256."""
+    g = torch.Generator().manual_seed(batch)
+    x, w1, b1, w2, b2, dy = _k1_inputs(batch, hidden, g, cuda)
+    before = dict(K1.bf16_products)
+    fwd = K1.res_block_forward(x, w1, b1, w2, b2, BF16)
+    fwd2 = K1.res_block_forward(x, w1, b1, w2, b2, BF16)
+    want = K1.res_block_forward_reference(x, w1, b1, w2, b2, BF16)
+    saved = K1.kernel_saved(x, *want[1:], BF16)
+    for a, b in zip((fwd[0], fwd[1], fwd[3]), (want[0], want[1], want[3])):
+        torch.testing.assert_close(a, b, **K1_TOL)
+    _k1_grad_close("dx", fwd[2].float(), saved[2].float(), BF16)  # h's plane: rounded
+    assert torch.equal(fwd[4], saved[0])
+    got = K1.res_block_backward(dy, saved[0], w1, w2, *saved[1:], BF16)
+    again = K1.res_block_backward(dy, saved[0], w1, w2, *saved[1:], BF16)
+    ref = K1.res_block_backward_reference(dy, x, w1, w2, *want[1:], BF16)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, ref):
+        _k1_grad_close(name, a, b, BF16)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, fwd2))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    kind = "tile" if batch == 256 else "persistent"
+    assert {k: v - before[k] for k, v in K1.bf16_products.items()} == {
+        "persistent": 0, "tile": 0, kind: 12}
+
+
+@pytest.mark.cuda
+def test_bf16_smem_bytes_match_the_kernels(cuda):
+    """ops/resblock.py:bf16_smem_bytes is what csrc/resblock.cu reserves on
+    every tile it builds."""
+    for persistent, rows, cols in K1.BF16_KERNELS:
+        for terms in (1, 2):
+            for staged in (True, False):
+                assert K1._lib().res_block_bf16_smem_bytes(persistent, rows, cols, terms,
+                                                            staged) == K1.bf16_smem_bytes(
+                    persistent, rows, cols, terms, staged)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 37, 512, 4096])
 def test_split_kernel_matches_plain_split(cuda, batch):
     """Bitwise: both round to nearest even."""
