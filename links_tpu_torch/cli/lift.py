@@ -12,6 +12,13 @@ kernel (ops/fused_infer.py; bf16 multiplies, chunks of at most 512 poses).
 ``--calib-rows`` train poses (ops/quant.py); a quantized forward runs no
 residual-block kernel.
 
+``--model dstformer`` serves MotionBERT's DSTformer (models/dstformer.py)
+from the state dict ``--dst-pt`` names, in place of the LInKs lifters: the
+clip is cut into windows of the model's 243 frames, the last holding the
+remainder, and a forward takes at most ``--batch-size`` // 243 windows (at
+least one). ``--fused``, ``--quant``, ``--scenario`` and ``--mode leg_torso``
+are LInKs paths and are refused with it.
+
 ``--scenario`` serves the occlusion story end to end: the scenario's 2D
 keypoints are zeroed, the pose is lifted by the four lifters (left, right,
 legs, torso) and the missing 3D part is infilled by the scenario's stage-4
@@ -63,18 +70,21 @@ def _load_raw_2d(path: str) -> np.ndarray:
     return arr
 
 
-def _chunks(fn, poses_2d: np.ndarray, batch: int, device, args: str | None = None) -> list:
+def _chunks(fn, poses_2d: np.ndarray, batch: int, device, args: str | None = None,
+            lens: np.ndarray | None = None) -> list:
     """Run ``fn`` over chunks of at most ``batch`` poses -> each chunk's
     output on the host. Per chunk, three spans with ``args``: ``lift.h2d``
     (the copy to ``device``), ``lift.forward`` (``fn``) and ``lift.d2h`` (the
-    copy back, which waits for the device)."""
+    copy back, which waits for the device). With ``lens`` (windows: the
+    valid frames of each row of ``poses_2d``) ``fn`` is a windowed forward,
+    called with the chunk's lens and ``args=args``."""
     outs = []
     for i in range(0, poses_2d.shape[0], batch):
         # one name for input and output: the device input is freed when the forward returns
         with span("lift.h2d", args):
             x = torch.from_numpy(poses_2d[i:i + batch]).to(device)
         with span("lift.forward", args):
-            x = fn(x)
+            x = fn(x) if lens is None else fn(x, lens[i:i + batch], args=args)
         with span("lift.d2h", args):
             outs.append(x.cpu())
     return outs
@@ -83,6 +93,66 @@ def _chunks(fn, poses_2d: np.ndarray, batch: int, device, args: str | None = Non
 def _chunked(fn, poses_2d: np.ndarray, batch: int, device) -> np.ndarray:
     """``_chunks``' outputs, concatenated."""
     return torch.cat(_chunks(fn, poses_2d, batch, device)).numpy()
+
+
+def pack_windows(clips: list, window: int) -> tuple[np.ndarray, np.ndarray]:
+    """Each (n, 34) clip cut into consecutive windows of ``window`` frames,
+    the last holding the remainder, in order -> (W, window, 34) windows,
+    each short one zero-padded, and (W,) their valid frames. A clip's frames
+    are then the first n rows of its windows laid end to end."""
+    counts = [-(-c.shape[0] // window) for c in clips]
+    total = sum(counts)
+    flat = np.empty((total * window, clips[0].shape[1]), np.float32)
+    lens = np.full(total, window, np.int64)
+    w = 0
+    for clip, k in zip(clips, counts):
+        n = clip.shape[0]
+        flat[w * window:w * window + n] = clip
+        flat[w * window + n:(w + k) * window] = 0.0
+        if k:
+            lens[w + k - 1] = n - (k - 1) * window
+        w += k
+    return flat.reshape(total, window, -1), lens
+
+
+def lift_windows(fn, poses_2d: np.ndarray, batch: int, device) -> np.ndarray:
+    """A windowed forward ``fn`` (``fn.window`` frames a window) over one
+    clip, at most ``batch`` frames (at least one window) a call -> (n, 51)."""
+    windows, lens = pack_windows([poses_2d], fn.window)
+    outs = _chunks(fn, windows, max(1, batch // fn.window), device, lens=lens)
+    out = torch.cat(outs).numpy()
+    return out.reshape(-1, out.shape[-1])[:poses_2d.shape[0]]
+
+
+def add_model_flags(parser):
+    """``--model`` and ``--dst-pt`` (lift and serve)."""
+    parser.add_argument("--model", choices=["links", "dstformer"], default="links",
+                        help="the LInKs lifters, or MotionBERT's DSTformer over windows "
+                             "of 243 frames (--dst-pt)")
+    parser.add_argument("--dst-pt", default=None,
+                        help="--model dstformer: a .pt state dict with MotionBERT's keys "
+                             "(its model_pos, the 'module.' prefix stripped)")
+
+
+def _dstformer_fn(args, batch: int, device):
+    """``--model dstformer``'s windowed forward (``fn(windows, lens, span
+    args)``, with ``fn.window``), its batch in frames and its module."""
+    import functools
+
+    from links_tpu_torch.models import dstformer
+
+    refused = [flag for flag, on in (("--fused", args.fused), ("--quant", args.quant),
+                                     ("--scenario", args.scenario),
+                                     ("--mode leg_torso", args.mode != "left_right")) if on]
+    if refused:
+        raise SystemExit(f"--model dstformer serves the DSTformer alone; it takes no "
+                         f"{', '.join(refused)}")
+    if not args.dst_pt:
+        raise SystemExit("--model dstformer needs --dst-pt: the DSTformer's state dict")
+    model = dstformer.load_pt(args.dst_pt, device)
+    fn = functools.partial(model.lift, policy=BF16 if args.policy == "bf16" else F32)
+    fn.window = model.maxlen
+    return fn, batch, {"dstformer": model}
 
 
 def add_serving_flags(parser):
@@ -118,6 +188,8 @@ def build_serving_fn(args, batch: int, device):
     from links_tpu_torch.objectives import occlusion as occ
     from links_tpu_torch.objectives.lifter import lift_left_right_eval, lift_leg_torso_eval
 
+    if getattr(args, "model", "links") == "dstformer":
+        return _dstformer_fn(args, batch, device)
     if args.fused and (args.scenario or args.mode != "left_right"):
         raise SystemExit("--fused covers the plain left_right forward only; "
                          "it cannot serve --scenario infill or --mode leg_torso")
@@ -164,6 +236,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Batch 2D->3D pose lifting (serving path, PyTorch port)")
     add_serving_flags(parser)
+    add_model_flags(parser)
     parser.add_argument("--raw-2d", default=None,
                         help=".npy/.npz of normalized (N,34) 2D poses; "
                              "bypasses the dataset loader")
@@ -190,9 +263,10 @@ def main(argv=None):
 
     with torch.inference_mode():
         fn, batch, _ = build_serving_fn(args, batch, device)
-        _chunked(fn, poses_2d[:batch], batch, device)  # warm up (kernel build, allocator)
+        run = lift_windows if args.model == "dstformer" else _chunked
+        run(fn, poses_2d[:batch], batch, device)  # warm up (kernel build, allocator)
         t0 = time.perf_counter()
-        pred = _chunked(fn, poses_2d, batch, device)
+        pred = run(fn, poses_2d, batch, device)
         dt = time.perf_counter() - t0
 
     pred_3d = pred.reshape(n, 3, 17)

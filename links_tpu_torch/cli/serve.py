@@ -21,6 +21,11 @@ forward, ``--fused`` on the fused serving kernel, ``--mode leg_torso``,
   dispatcher's ``serve.wait``, ``serve.merge``, ``serve.reply`` and each
   chunk's ``lift.h2d``, ``lift.forward``, ``lift.d2h``.
 
+``--model dstformer`` serves MotionBERT's DSTformer (``--dst-pt``) over
+windows of 243 frames (cli/lift.py): its dispatcher is a ``WindowCoalescer``,
+which merges whole windows and hands each caller the valid frames of its
+own.
+
 One dispatcher thread owns the device (the ``Coalescer``): HTTP threads hand
 it their poses and wait, and it merges the requests that queued while the
 device was busy into one chunked run, so that N concurrent small requests
@@ -58,7 +63,15 @@ import numpy as np
 import torch
 
 from links_tpu_torch.cli import _common as C
-from links_tpu_torch.cli.lift import _chunked, _chunks, add_serving_flags, build_serving_fn
+from links_tpu_torch.cli.lift import (
+    _chunked,
+    _chunks,
+    add_model_flags,
+    add_serving_flags,
+    build_serving_fn,
+    lift_windows,
+    pack_windows,
+)
 from links_tpu_torch.train.profiling import span, totals
 
 MAX_BODY = 256 * 1024 * 1024  # 256 MB, about 2M poses: anything larger is refused
@@ -138,11 +151,28 @@ class Coalescer:
                 break
             self._take(nxt)
             pending.append(nxt)
-            rows += nxt[0].shape[0]
+            rows += self._size(nxt[0])
         return pending
+
+    def _size(self, poses: np.ndarray) -> int:
+        """A request's share of ``max_rows``: its rows."""
+        return poses.shape[0]
+
+    def _merge(self, pending):
+        """The requests' poses as one run's input."""
+        return pending[0][0] if len(pending) == 1 else np.concatenate([p[0] for p in pending])
 
     def _run(self, poses: np.ndarray) -> list:
         return _chunks(self.fn, poses, self.batch, self.device, self._args)
+
+    def _scatter(self, requests, out: np.ndarray):
+        """Hand each of ``requests`` its rows of the run's output."""
+        ofs = 0
+        for poses, ev, slot, _ in requests:
+            n = poses.shape[0]
+            slot["out"] = out[ofs:ofs + n]
+            ofs += n
+            ev.set()
 
     def _reply(self, requests, outs) -> float:
         """Hand each of ``requests`` its rows of ``outs`` (their outputs'
@@ -153,13 +183,7 @@ class Coalescer:
                     slot["err"] = outs
                     ev.set()
             else:
-                out = torch.cat(outs).numpy()
-                ofs = 0
-                for poses, ev, slot, _ in requests:
-                    n = poses.shape[0]
-                    slot["out"] = out[ofs:ofs + n]
-                    ofs += n
-                    ev.set()
+                self._scatter(requests, torch.cat(outs).numpy())
         return reply.seconds
 
     def _loop(self):
@@ -173,9 +197,8 @@ class Coalescer:
                 run += 1
                 with span("serve.merge", f"run {run}") as merge:
                     self._take(item)
-                    pending = self._drain([item], item[0].shape[0])
-                    arr = (pending[0][0] if len(pending) == 1 else
-                           np.concatenate([p[0] for p in pending]))
+                    pending = self._drain([item], self._size(item[0]))
+                    arr = self._merge(pending)
                 host_s = merge.seconds
                 self._args = f"run {run} requests {len(pending)}"  # the run's spans' args
                 try:
@@ -186,7 +209,7 @@ class Coalescer:
                     else:  # one poisoned request must not fail the others merged with it
                         for p in pending:
                             try:
-                                outs_i = self._run(p[0])
+                                outs_i = self._run(self._merge([p]))
                                 self.stats["device_batches"] += 1
                                 self.stats["merged_requests"] += 1
                             except Exception as e_i:
@@ -197,6 +220,51 @@ class Coalescer:
                 self.stats["device_batches"] += 1
                 self.stats["merged_requests"] += len(pending)
                 self.stats["dispatch_host_s"] += host_s + self._reply(pending, outs)
+
+
+class WindowCoalescer(Coalescer):
+    """The ``Coalescer`` of a windowed forward (``fn(windows, lens,
+    args=...)``, ``--model dstformer``): each request is cut into
+    consecutive windows of ``window`` frames, the last holding the remainder
+    (cli/lift.py:pack_windows), and a run merges whole windows, at most
+    ``max_merge_chunks`` chunks of ``batch // window`` windows (at least
+    one), never one window across two requests or two chunks. A caller gets
+    the valid frames of its own windows.
+
+    ``stats`` adds, over the runs that succeeded: ``windows``,
+    ``tail_windows`` (those shorter than ``window``), ``frames_run`` (padding
+    included) and ``frames_padded``."""
+
+    def __init__(self, fn, batch: int, device="cpu", max_wait_ms: float = 0.0,
+                 max_merge_chunks: int = 4, *, window: int):
+        self.window = window
+        super().__init__(fn, max(1, batch // window), device, max_wait_ms, max_merge_chunks)
+        self.stats.update(windows=0, tail_windows=0, frames_run=0, frames_padded=0)
+
+    def _size(self, poses: np.ndarray) -> int:
+        return -(-poses.shape[0] // self.window)
+
+    def _merge(self, pending):
+        return pack_windows([p[0] for p in pending], self.window)
+
+    def _run(self, merged) -> list:
+        windows, lens = merged
+        outs = _chunks(self.fn, windows, self.batch, self.device, self._args, lens)
+        run = lens.shape[0] * self.window
+        self.stats["windows"] += lens.shape[0]
+        self.stats["tail_windows"] += int((lens < self.window).sum())
+        self.stats["frames_run"] += run
+        self.stats["frames_padded"] += run - int(lens.sum())
+        return outs
+
+    def _scatter(self, requests, out: np.ndarray):
+        flat = out.reshape(-1, out.shape[-1])
+        ofs = 0
+        for poses, ev, slot, _ in requests:
+            n = poses.shape[0]
+            slot["out"] = flat[ofs:ofs + n]
+            ofs += -(-n // self.window) * self.window
+            ev.set()
 
 
 def _parse_poses(body: bytes, content_type: str) -> np.ndarray:
@@ -255,23 +323,27 @@ def make_server(args) -> ThreadingHTTPServer:
     unless --no-warmup, bound to --host/--port (port 0: any free one); its
     ``server_close`` also stops the dispatcher."""
     device = C.resolve_device(args.device)
+    window = None
     if getattr(args, "artifact", None):
         fn, batch, model_desc = _load_artifact(args, device)
     else:
         with torch.inference_mode():  # the weights load as inference tensors, as in lift
             fn, batch, _ = build_serving_fn(args, args.batch_size or 256, device)
-        model_desc = {"mode": args.mode, "scenario": args.scenario, "quant": args.quant,
-                      "fused": args.fused, "policy": args.policy, "model_dir": args.model_dir,
-                      "device": str(device)}
+        window = getattr(fn, "window", None)
+        model_desc = {"model": args.model, "mode": args.mode, "scenario": args.scenario,
+                      "quant": args.quant, "fused": args.fused, "policy": args.policy,
+                      "model_dir": args.model_dir, "device": str(device)}
+    run = _chunked if window is None else lift_windows
     if args.warmup:
         with torch.inference_mode():
-            _chunked(fn, np.zeros((batch, 34), np.float32), batch, device)
+            run(fn, np.zeros((batch, 34), np.float32), batch, device)
     lock = threading.Lock()
     stats = {"requests": 0, "poses": 0, "errors": 0, "started": time.time()}
     coalescer = None
     if getattr(args, "coalesce", True):
-        coalescer = Coalescer(fn, batch, device,
-                              max_wait_ms=getattr(args, "coalesce_wait_ms", 0.0))
+        wait_ms = getattr(args, "coalesce_wait_ms", 0.0)
+        coalescer = (Coalescer(fn, batch, device, max_wait_ms=wait_ms) if window is None else
+                     WindowCoalescer(fn, batch, device, max_wait_ms=wait_ms, window=window))
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *log_args):  # quiet unless --verbose
@@ -320,7 +392,7 @@ def make_server(args) -> ThreadingHTTPServer:
                     pred = coalescer.submit(poses)
                 else:
                     with lock, torch.inference_mode():  # one device: one request at a time
-                        pred = _chunked(fn, poses, batch, device)
+                        pred = run(fn, poses, batch, device)
             except Exception as e:  # a failure of the model: 500, and the server lives on
                 return self._error(500, f"{type(e).__name__}: {e}")
             ms = (time.perf_counter() - t0) * 1e3
@@ -365,6 +437,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "is unfilled (default 0: merge only what queued while the "
                              "device was busy)")
     add_serving_flags(parser)
+    add_model_flags(parser)
     C.add_device_flag(parser)
     C.add_common_flags(parser)
     C.add_lr_pt_flags(parser)

@@ -45,6 +45,26 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
     return y if bias is None else y + bias
 
 
+def mm_bf16(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ weight^T, weight (N, K), as a bf16 product: both operands
+    rounded to bf16, their products summed in f32, an f32 (M, N) result
+    (``Policy``'s contract). On the card this is one tensor-core GEMM
+    (``aten::mm.dtype``), where ``dense`` under ``BF16`` multiplies the
+    rounded operands in f32; elsewhere, which has no such kernel, it is
+    ``dense``'s product (the same numbers up to summation order). No bias:
+    the caller adds it."""
+    x, weight = x.to(torch.bfloat16), weight.to(torch.bfloat16)
+    if x.is_cuda:
+        return torch.mm(x, weight.t(), out_dtype=torch.float32)
+    return x.float() @ weight.float().t()
+
+
+def gelu_(x: torch.Tensor) -> torch.Tensor:
+    """The exact GELU, x * Phi(x) with the erf (``nn.GELU``'s default, not
+    its tanh approximation), in place."""
+    return torch.ops.aten.gelu_(x)
+
+
 # Activation ranges for static int8 calibration (ops/quant.py:
 # quantize_params_static): while a dict is installed here, every ``Linear``
 # records the max |x| it is called with, keyed by id() of the module.
