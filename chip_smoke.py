@@ -85,8 +85,14 @@ Phases, each fatal on failure:
      exit 2 without matplotlib); the pose discriminator, a LayerNorm lifter
      and a dropout block against the CPU, and
      ``links_tpu_torch.cli.preprocess`` on a small h5 tree (or exit 2
-     without h5py); and the metrics' batched SVD at 500,000 poses, one call
-     against chunks;
+     without h5py); the metrics' batched SVD at 500,000 poses, one call
+     against chunks; and the DSTformer's glue kernels (ops/dst_glue.py) at
+     the dst-lift-sat cell's 1,111,239 tokens, each mode against its plain
+     version, timed beside its byte bound, its plain version and the op
+     sequence it replaced, and held within 1 / 0.7 of its bound, then
+     ``lift --model dstformer --policy bf16`` of the cell's 269 windows at
+     MotionBERT's published widths and one DSTformer.lift of them, their
+     glue launches counted from 0 (50 / 20 / 20 a forward);
   5. time each stage's training step at batch 256 (3a also under F32),
      then K2, then the
      serving daemon's requests/s and lift's poses/s by serving flag, before
@@ -176,6 +182,7 @@ from links_tpu_torch.objectives.occlusion import (
     pseudo_3d_from_lifters,
 )
 from links_tpu_torch.ops import _build
+from links_tpu_torch.ops import dst_glue
 from links_tpu_torch.ops import fused_infer as K2
 from links_tpu_torch.ops import resblock as K1
 from links_tpu_torch.train import feed, parallel, profiling, steps
@@ -526,9 +533,10 @@ def _k2_batches() -> list[int]:
 
 def phase_build():
     t0 = time.perf_counter()
-    _build.build(["fused_infer", "resblock", "dataloader"])
+    _build.build(["fused_infer", "resblock", "dst_glue", "dataloader"])
     K2._lib()
     K1._lib()
+    dst_glue._lib()
     native_loader._lib()
     _log(f"[build] kernels and the packed-data loader built and loaded in "
          f"{time.perf_counter() - t0:.2f} s")
@@ -943,6 +951,15 @@ def _counts() -> dict:
             "res_block_forward_f32": K1.res_block_forward.f32_launches,
             "res_block_backward": K1.res_block_backward.launches,
             "res_block_backward_f32": K1.res_block_backward.f32_launches}
+
+
+def _dst_glue_counts(reset: bool = False) -> dict:
+    """The DSTformer's glue launches by entry point (set to 0 with
+    ``reset``)."""
+    if reset:
+        for name in DST_GLUE:
+            getattr(dst_glue, name).launches = 0
+    return {name: getattr(dst_glue, name).launches for name in DST_GLUE}
 
 
 def _plane_counts(bf16: bool) -> tuple:
@@ -2720,6 +2737,151 @@ def phase_metrics_scale(smi: str):
          f"get_all {ga_ms:.2f} ms")
 
 
+# The DSTformer's forward in the dst-lift-sat cell: 269 windows of 243 frames of 17 joints
+DST_WINDOWS, DST_FRAMES, DST_C = 269, 243, 512
+DST_ROWS = DST_WINDOWS * DST_FRAMES * 17
+DST_GLUE = ("residual_layernorm", "qkv_bias_split", "bias_gelu_cast")
+DST_GLUE_PER_FORWARD = {"residual_layernorm": 50, "qkv_bias_split": 20, "bias_gelu_cast": 20}
+
+
+def phase_dst_glue(tmp: Path, smi: str) -> tuple[dict, dict]:
+    """The DSTformer's glue kernels (ops/dst_glue.py) at the dst-lift-sat
+    cell's shape, M = 1,111,239 tokens of C = 512. Each mode of each entry
+    point is held to its plain version under both output types (bit for bit
+    where elementwise; the LayerNorm within 1e-5 of it in f32, its bf16
+    output its own f32 output rounded), then timed with bf16 output, as
+    under the cell's policy, on the device with CUDA events (least of three
+    runs of 20 calls) beside its byte bound, its plain version and the op
+    sequence it replaced in models/dstformer.py; each must take at most 1 /
+    0.7 of its bound. Then the main path, the counters set to 0 just before
+    each: ``lift --model dstformer --policy bf16`` of the cell's 269 windows
+    at MotionBERT's published widths (seeded weights as a --dst-pt state
+    dict), its warm-up and its lift two forwards, and one DSTformer.lift of
+    those windows, 50 / 20 / 20 launches. -> (counts by path, timing rows by
+    entry point)."""
+    from links_tpu_torch.models import dstformer
+
+    G, bf = dst_glue, torch.bfloat16
+    M, C = DST_ROWS, DST_C
+    g = torch.Generator("cuda").manual_seed(22)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    x, u = randn(M, C), randn(M, C)
+    b, gamma, beta = randn(C), 1 + randn(C, scale=0.1), randn(C)
+    y3, b3, y2, b2 = randn(M, 3 * C), randn(3 * C), randn(M, 2 * C), randn(2 * C)
+    modes = {"residual_layernorm": (b, gamma, beta), "residual": (b, None, None),
+             "layernorm": (None, gamma, beta)}
+    checks, ln_err = {}, 0.0
+    for name, (bias, ga, be) in modes.items():
+        def run(fn, dtype=torch.float32):  # the kernel writes s over its u
+            return fn(x, None if bias is None else u.clone(), bias, ga, be, dtype)
+
+        s, h32 = run(G.residual_layernorm)
+        want_s, want_h = run(G.residual_layernorm_reference)
+        checks[name + " s"] = torch.equal(s, want_s)
+        if ga is not None:
+            err = float((h32 - want_h).abs().max())
+            ln_err = max(ln_err, err)
+            checks[name + " f32"] = err <= 1e-5 + 1e-5 * float(want_h.abs().max())
+            checks[name + " bf16"] = torch.equal(run(G.residual_layernorm, bf)[1], h32.to(bf))
+        del s, h32, want_s, want_h
+    for dtype in (bf, torch.float32):
+        checks[f"qkv_bias_split {dtype}"] = torch.equal(G.qkv_bias_split(y3, b3, dtype),
+                                                        G.qkv_bias_split_reference(y3, b3, dtype))
+        checks[f"bias_gelu_cast {dtype}"] = torch.equal(
+            G.bias_gelu_cast(y2.clone(), b2, dtype), G.bias_gelu_cast_reference(y2, b2, dtype))
+    if not all(checks.values()):
+        raise AssertionError(f"DST glue against its plain versions at M={M}: {checks} "
+                             f"(LayerNorm's f32 max abs error {ln_err:.3e})")
+    ub, xr = u.clone(), x.clone()
+
+    def replaced_residual():  # _linear's bias add, then the residual add in place
+        return ub.add_(b), xr.add_(ub)
+
+    # mode -> (kernel, plain version, replaced op sequence, bytes)
+    calls = {
+        "qkv_bias_split": (
+            lambda: G.qkv_bias_split(y3, b3, bf),
+            lambda: G.qkv_bias_split_reference(y3, b3, bf),
+            lambda: torch.add(y3.view(M, 3, C), b3.view(3, C),
+                              out=torch.empty(3, M, C, dtype=bf, device="cuda").permute(1, 0, 2)),
+            M * 3 * C * (4 + 2)),
+        "bias_gelu_cast": (
+            lambda: G.bias_gelu_cast(y2, b2, bf),
+            lambda: G.bias_gelu_cast_reference(y2, b2, bf),
+            lambda: torch.ops.aten.gelu_(y2.add_(b2)).to(bf),
+            M * 2 * C * (4 + 2)),
+        "residual_layernorm": (
+            lambda: G.residual_layernorm(x, ub, b, gamma, beta, bf),
+            lambda: G.residual_layernorm_reference(x, u, b, gamma, beta, bf),
+            lambda: F.layer_norm(replaced_residual()[1], (C,), gamma, beta, G.LN_EPS).to(bf),
+            M * C * (4 + 4 + 4 + 2)),
+        "residual": (
+            lambda: G.residual_layernorm(x, ub, b),
+            lambda: G.residual_layernorm_reference(x, u, b),
+            replaced_residual,
+            M * C * (4 + 4 + 4)),
+        "layernorm": (
+            lambda: G.residual_layernorm(x, gamma=gamma, beta=beta, dtype=bf),
+            lambda: G.residual_layernorm_reference(x, gamma=gamma, beta=beta, dtype=bf),
+            lambda: F.layer_norm(x, (C,), gamma, beta, G.LN_EPS).to(bf),
+            M * C * (4 + 2)),
+    }
+    rows, slow = {}, []
+    for name, (kernel, plain, replaced, nbytes) in calls.items():
+        runs = [_time_ms(kernel, iters=20, warmup=3)[0] for _ in range(3)]
+        row = {"ms": min(runs), "plain_ms": _time_ms(plain, iters=5, warmup=1)[0],
+               "replaced_ms": _time_ms(replaced, iters=5, warmup=1)[0],
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "gb": nbytes / 1e9}
+        row["of_bound"] = row["bound_ms"] / row["ms"]
+        rows[name] = row
+        _log(f"[time] dst_glue {name} M={M} C={C} bf16 out: kernel {row['ms']:.4f} ms (least of "
+             f"{' / '.join(f'{r:.4f}' for r in runs)}), {100 * row['of_bound']:.1f}% of its "
+             f"bound {row['bound_ms']:.4f} ms ({row['gb']:.2f} GB); plain version "
+             f"{row['plain_ms']:.4f} ms, the replaced op sequence {row['replaced_ms']:.4f} ms "
+             f"on {smi}")
+        if row["of_bound"] < 0.7:
+            slow.append(name)
+    print(json.dumps({"dst_glue": rows}))
+    if slow:
+        raise AssertionError(f"DST glue under 70% of its byte bound at M={M}: {slow}")
+    del x, u, y3, y2, ub, xr
+    rows["residual_layernorm"]["max_abs_err"] = ln_err
+
+    # the main path: lift --model dstformer of one chunk of the cell's windows
+    model = dstformer.DSTformer(generator=torch.Generator().manual_seed(22))
+    torch.save(model.state_dict(), tmp / "dstformer.pt")
+    n = DST_WINDOWS * DST_FRAMES
+    poses = np.random.default_rng(22).standard_normal((n, 34), np.float32) * 0.1
+    np.save(tmp / "dst_poses.npy", poses)
+    _dst_glue_counts(reset=True)
+    _, counts = _lift(["--device", "cuda", "--batch-size", str(n)],
+                      ["--model", "dstformer", "--dst-pt", str(tmp / "dstformer.pt"),
+                       "--raw-2d", str(tmp / "dst_poses.npy"), "--policy", "bf16"],
+                      tmp / "dst.npz", "dstformer", n)
+    in_lift = _dst_glue_counts()
+    model = dstformer.load_pt(tmp / "dstformer.pt", "cuda")
+    windows = torch.from_numpy(poses).cuda().view(DST_WINDOWS, DST_FRAMES, 34)
+    _reset_counts()
+    _dst_glue_counts(reset=True)
+    with torch.inference_mode():
+        y = model.lift(windows, None, BF16)
+    torch.cuda.synchronize()
+    one, glue = _counts(), _dst_glue_counts()
+    if glue != DST_GLUE_PER_FORWARD or in_lift != {k: 2 * v for k, v in glue.items()} \
+            or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"DST glue launches: one forward of {DST_WINDOWS} windows {glue}, "
+                             f"expected {DST_GLUE_PER_FORWARD}; lift --model dstformer (warm-up "
+                             f"and lift) {in_lift}, expected twice that; output finite "
+                             f"{bool(torch.isfinite(y).all())}")
+    _log(f"[dst_glue] launches, counted from 0: one DSTformer.lift of {DST_WINDOWS} windows "
+         f"{glue}; lift --model dstformer --policy bf16 (warm-up and lift) {in_lift}; "
+         f"LayerNorm's f32 max abs error {ln_err:.3e}")
+    return {"lift dstformer": {**counts, **in_lift}, "DSTformer.lift": {**one, **glue}}, rows
+
+
 def _smi() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -3111,6 +3273,8 @@ def main() -> int:
         counts.update(_timed("feed", phase_feed, data, models, tmp, counts["3a"],
                              summaries["3a"]["poses_per_sec"], smi))
         _timed("metrics at scale", phase_metrics_scale, smi)
+        dst_counts, dst_rows = _timed("DST glue", phase_dst_glue, tmp, smi)
+        counts.update(dst_counts)
         _, profiles = _timed("step times", phase_step_times, smi)
         k2_rows = _timed("K2 times", phase_times, prep, smi)
         _timed("serving times", phase_serving_times, data, models, tmp, smi)
@@ -3156,9 +3320,14 @@ def main() -> int:
         {"name": "res_block_backward_f32", "route": "cuda", "source": src + "resblock.cu",
          "replaces": "links_tpu/experimental/pallas_resblock.py:69", "max_abs_err": k1_err[3],
          **k1_rows[512, "f32", "backward"]},
+        *({"name": name, "route": "cuda", "source": src + "dst_glue.cu",
+           "replaces": "none: the JAX package has no DSTformer", "max_abs_err": 0.0,
+           **dst_rows[name]} for name in DST_GLUE),
     ]
+    # the residual-only and LayerNorm-only modes of residual_layernorm
+    kernels[-3]["modes"] = {mode: dst_rows[mode] for mode in ("residual", "layernorm")}
     for k in kernels:  # launches: the main paths' total, and path by path
-        by_path = {path: c[k["name"]] for path, c in counts.items() if c[k["name"]]}
+        by_path = {path: c[k["name"]] for path, c in counts.items() if c.get(k["name"])}
         k.update(launches=sum(by_path.values()), launches_by_path=by_path)
     print(json.dumps({"kernels": kernels}))
     print(smi)

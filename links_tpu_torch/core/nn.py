@@ -59,12 +59,6 @@ def mm_bf16(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return x.float() @ weight.float().t()
 
 
-def gelu_(x: torch.Tensor) -> torch.Tensor:
-    """The exact GELU, x * Phi(x) with the erf (``nn.GELU``'s default, not
-    its tanh approximation), in place."""
-    return torch.ops.aten.gelu_(x)
-
-
 # Activation ranges for static int8 calibration (ops/quant.py:
 # quantize_params_static): while a dict is installed here, every ``Linear``
 # records the max |x| it is called with, keyed by id() of the module.

@@ -38,12 +38,22 @@ product with f32 sums and an f32 result (``core.nn.mm_bf16``), attention
 takes q, k and v in bf16 (``scaled_dot_product_attention``: f32 scores and
 softmax, bf16 probabilities, f32 sums), and the LayerNorms, GELU, tanh, the
 fusion's softmax and the residual stream are f32. Under ``F32`` all of it is
-f32. No kernel of this repository runs here: library GEMMs, attention and
-elementwise passes.
+f32. The GEMMs and attention are the library's; the passes between them in
+the blocks are this repository's kernels (ops/dst_glue.py), one per chain:
+a LayerNorm writes the next product's operand in the compute dtype, the
+qkv bias add writes q, k and v, fc1's bias add, GELU and cast are one pass,
+and each residual add is one pass with the LayerNorm after it. They round
+where the plain op sequence rounds: the products' operands and q, k, v.
+Per stream 9 launches: 5 ``residual_layernorm`` (the stream's first
+LayerNorm, of ``z``, which both streams read and neither writes; 3 residual
+adds each with the next LayerNorm; the last residual add alone), 2
+``qkv_bias_split``, 2 ``bias_gelu_cast``.
 
 Spans (train/profiling.py) per forward, each with the caller's ``args``:
 ``dst.embed``; ``dst.attn_s`` and ``dst.attn_t``, each attention sub-step
-with its LayerNorm and residual add; ``dst.mlp``, each MLP sub-step likewise;
+with its residual add and the LayerNorm after it (the MLP's); ``dst.mlp``,
+each MLP sub-step with its residual add and the next sub-step's LayerNorm
+(a stream's first LayerNorm runs in its first attention span);
 ``dst.fuse``, a level's fusion; ``dst.head``.
 """
 
@@ -56,11 +66,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from links_tpu_torch.core.nn import F32, LayerNorm, Linear, Policy, gelu_, mm_bf16
+from links_tpu_torch.core.nn import F32, LayerNorm, Linear, Policy, mm_bf16
+from links_tpu_torch.ops import dst_glue as G
+from links_tpu_torch.ops.dst_glue import LN_EPS
 from links_tpu_torch.train.profiling import span
 
 NUM_HEADS = 8  # MB_ft_h36m.yaml's heads (8 of 64); a state dict does not carry it
-LN_EPS = 1e-6
 EMBED_STD = 0.02  # MotionBERT's trunc_normal_(std=.02) of pos_embed and temp_embed
 
 
@@ -184,31 +195,39 @@ class DSTformer(nn.Module):
 
     def _stream(self, blk: Block, z, order, shape, keys, policy, args):
         """One stream of a level from ``z`` (left as it is) -> its output."""
-        out = None
-        for sfx in order:
+        dt = policy.compute_dtype
+        out = h = None
+        for i, sfx in enumerate(order):
             temporal = sfx == "t"
             with span("dst.attn_t" if temporal else "dst.attn_s", args):
-                u = self._attention(getattr(blk, f"attn_{sfx}"),
-                                    _ln(z if out is None else out, getattr(blk, f"norm1_{sfx}")),
-                                    shape, keys if temporal else None, temporal, policy)
-                out = z + u if out is None else out.add_(u)
+                if h is None:
+                    norm = getattr(blk, f"norm1_{sfx}")
+                    _, h = G.residual_layernorm(z, gamma=norm.weight, beta=norm.bias, dtype=dt)
+                attn = getattr(blk, f"attn_{sfx}")
+                u = self._attention(attn, h, shape, keys if temporal else None, temporal, policy)
+                norm = getattr(blk, f"norm2_{sfx}")
+                out, h = G.residual_layernorm(z if out is None else out, u, attn.proj.bias,
+                                              norm.weight, norm.bias, dt)
             with span("dst.mlp", args):
                 mlp = getattr(blk, f"mlp_{sfx}")
-                u = gelu_(_linear(_ln(out, getattr(blk, f"norm2_{sfx}")), mlp.fc1, policy))
-                out.add_(_linear(u, mlp.fc2, policy))
+                u = G.bias_gelu_cast(_mm(h, mlp.fc1.weight, policy), mlp.fc1.bias, dt)
+                u = _mm(u, mlp.fc2.weight, policy)
+                gamma = beta = None
+                if i + 1 < len(order):  # the next sub-step's LayerNorm
+                    norm = getattr(blk, f"norm1_{order[i + 1]}")
+                    gamma, beta = norm.weight, norm.bias
+                out, h = G.residual_layernorm(out, u, mlp.fc2.bias, gamma, beta, dt)
         return out
 
     def _attention(self, attn: Attention, h, shape, keys, temporal: bool, policy: Policy):
-        """A_s or A_t of the (W F J, C) normalized tokens ``h``."""
+        """A_s or A_t of the (W F J, C) normalized tokens ``h`` (in the compute
+        dtype) -> proj's f32 product, its bias not added."""
         W, Fr, J = shape
         M, C = h.shape
         H = self.num_heads
         D = C // H
-        y = _mm(h, attn.qkv.weight, policy)
-        qkv = torch.empty(3, M, C, dtype=policy.compute_dtype, device=h.device)
-        # the bias add writes q, k and v each in token order, in the policy's dtype
-        torch.add(y.view(M, 3, C), attn.qkv.bias.view(3, C), out=qkv.permute(1, 0, 2))
-        del y
+        qkv = G.qkv_bias_split(_mm(h, attn.qkv.weight, policy), attn.qkv.bias,
+                               policy.compute_dtype)
         if temporal:  # one sequence of F frames per (window, joint, head)
             q, k, v = (u.view(W, Fr, J * H, D).transpose(1, 2) for u in qkv)
         else:  # one sequence of J joints per (window, frame, head)
@@ -216,7 +235,7 @@ class DSTformer(nn.Module):
         with _backends(q, temporal and keys is None):
             o = F.scaled_dot_product_attention(q, k, v, attn_mask=keys)
         del q, k, v, qkv
-        return _linear(o.transpose(1, 2).reshape(M, C), attn.proj, policy)
+        return _mm(o.transpose(1, 2).reshape(M, C), attn.proj.weight, policy)
 
     def lift(self, p2d: torch.Tensor, lens=None, policy: Policy = F32,
              args: str | None = None) -> torch.Tensor:

@@ -635,3 +635,155 @@ def test_dstformer_windows_at_published_widths_hold_the_f32_reference(cuda):
             assert gap < tol, (policy, w, gap)
     fp8 = R.lift(p, x[2, :100], prec=R.FP8)
     assert float((fp8 - want[2]).abs().max() / want[2].abs().max()) > 0.07
+
+
+# The DSTformer's glue (ops/dst_glue.py) at the dst-lift-sat cell's shape: a
+# forward of 269 windows of 243 frames of 17 joints, C = 512
+DST_ROWS, DST_C = 269 * 243 * 17, 512
+
+
+def _dst_randn(g, *shape, scale=1.0):
+    return torch.randn(*shape, generator=g, device=g.device) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_dst_glue_kernels_hold_their_plain_versions_at_the_cells_shape(cuda, dtype):
+    """Each kernel against its plain version on the card at M = 1,111,239,
+    C = 512. Bit for bit where the arithmetic is elementwise: the residual
+    s = x + (u + b), q, k, v, and GELU(y + b) in either output type. The
+    LayerNorm within 1e-5 (abs and rel) in f32: the kernel sums a row's 512
+    values in warp shuffles, mean first and then the squared deviations,
+    torch's kernel by Welford's update, so mean and rstd differ in their
+    last bits and an output (|x - mean| rstd |gamma| of a few units at most)
+    by a few f32 ulps. Its bf16 output is its own f32 output rounded, bit
+    for bit: only the store differs."""
+    from links_tpu_torch.ops import dst_glue as G
+
+    g = torch.Generator(cuda).manual_seed(22)
+    M, C = DST_ROWS, DST_C
+    x, u = _dst_randn(g, M, C), _dst_randn(g, M, C)
+    b, gamma, beta = _dst_randn(g, C), 1 + _dst_randn(g, C, scale=0.1), _dst_randn(g, C)
+    x0 = x.clone()
+    for residual, norm in ((False, True), (True, True), (True, False)):
+        aff = (gamma, beta) if norm else (None, None)
+
+        def res():  # the kernel writes s over u
+            return (u.clone(), b) if residual else (None, None)
+
+        s, h = G.residual_layernorm(x, *res(), *aff, dtype=dtype)
+        want_s, want_h = G.residual_layernorm_reference(x, *res(), *aff, dtype=dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(x, x0)
+        assert torch.equal(s, want_s), (residual, norm)
+        if not norm:
+            assert h is None and want_h is None
+            continue
+        h32 = G.residual_layernorm(x, *res(), *aff)[1]
+        torch.testing.assert_close(h32, G.residual_layernorm_reference(x, *res(), *aff)[1],
+                                   rtol=1e-5, atol=1e-5)
+        assert h.dtype == want_h.dtype == dtype and torch.equal(h, h32.to(dtype))
+    del x, u, x0, s, h, want_s, want_h
+    y, bq = _dst_randn(g, M, 3 * C), _dst_randn(g, 3 * C)
+    assert torch.equal(G.qkv_bias_split(y, bq, dtype), G.qkv_bias_split_reference(y, bq, dtype))
+    del y
+    y, b1 = _dst_randn(g, M, 2 * C), _dst_randn(g, 2 * C)
+    want = G.bias_gelu_cast_reference(y, b1, dtype)
+    got = G.bias_gelu_cast(y.clone(), b1, dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_dst_glue_refuses_what_the_kernels_do_not_take(cuda):
+    from links_tpu_torch.ops import dst_glue as G
+
+    y, b = torch.zeros(16, 60, device=cuda), torch.zeros(60, device=cuda)
+    before = G.bias_gelu_cast.launches
+    with pytest.raises(ValueError, match="row width 60 is not a multiple of 8"):
+        G.bias_gelu_cast(y, b)
+    with pytest.raises(ValueError, match="row width 60 is not a multiple of 8"):
+        G.residual_layernorm(y, gamma=b, beta=b)
+    with pytest.raises(ValueError, match="row width 60 is not a multiple of 8"):
+        G.qkv_bias_split(torch.zeros(16, 180, device=cuda), torch.zeros(180, device=cuda))
+    flat = torch.zeros(16 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        G.bias_gelu_cast(flat[1:].view(16, 64), torch.zeros(64, device=cuda))
+    with pytest.raises(ValueError, match="on cuda"):
+        G.bias_gelu_cast(torch.zeros(16, 64, device=cuda), torch.zeros(64))
+    x = torch.zeros(16, 64, device=cuda)
+    with pytest.raises(ValueError, match="may not be x"):
+        G.residual_layernorm(x, x, torch.zeros(64, device=cuda))
+    assert G.bias_gelu_cast.launches == before
+
+
+@pytest.mark.cuda
+def test_dstformer_forward_of_269_windows_makes_90_glue_launches(cuda):
+    """One forward of the cell's 269 windows at MotionBERT's published widths
+    (depth 5, two streams a level): 9 glue launches a stream, 5 LayerNorm
+    passes, 2 qkv splits, 2 bias + GELU passes."""
+    import dstformer_reference as R
+
+    from links_tpu_torch.models import dstformer
+    from links_tpu_torch.ops import dst_glue as G
+
+    g = torch.Generator(cuda).manual_seed(23)
+    model = dstformer.from_state_dict(R.init_params(g), cuda)
+    x = torch.randn(269, 243, 34, generator=g, device=cuda) * 0.1
+    counters = (G.residual_layernorm, G.qkv_bias_split, G.bias_gelu_cast)
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        y = model.lift(x, None, BF16)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == [50, 20, 20]
+    assert bool(torch.isfinite(y).all())
+
+
+@pytest.mark.cuda
+def test_dst_glue_launches_are_filed_under_their_operator_on_the_calling_thread(cuda):
+    """A glue kernel launched on a thread other than the profiler's own (as
+    on serve's dispatcher) is linked to its operator there: its launch call
+    lies inside the operator, on the thread of the operators and of a
+    PyTorch op called beside them, and not on the thread that started the
+    profiler, so a reader that matches launches to that thread's spans
+    counts it. The profiler drops some events on the H100, so the glue runs
+    20 times and each kernel kept with its launch is checked."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from links_tpu_torch.ops import dst_glue as G
+
+    y, b = torch.randn(64, 512, device=cuda), torch.randn(512, device=cuda)
+    G.bias_gelu_cast(y, b, torch.bfloat16)  # built and loaded before the profiler starts
+    torch.cuda.synchronize()
+
+    def work():
+        for _ in range(20):
+            G.bias_gelu_cast(y, b, torch.bfloat16)
+        torch.neg(y)
+
+    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=config) as prof:
+        worker = threading.Thread(target=work)
+        worker.start()
+        worker.join()
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    cpu = torch.autograd.DeviceType.CPU
+    launches = {e.correlation_id(): e for e in events
+                if e.device_type() == cpu and e.name().startswith("cu") and e.correlation_id()}
+    neg = [e for e in events if e.name() == "aten::neg"]
+    main = {e.start_thread_id() for e in events if e.name() == "cudaDeviceSynchronize"}
+    assert len(neg) == 1 and main and neg[0].start_thread_id() not in main
+    tid = neg[0].start_thread_id()
+    kept = [launches[e.correlation_id()] for e in events if e.device_type() != cpu
+            and "bias_gelu_kernel" in e.name() and e.correlation_id() in launches]
+    assert kept, [e.name()[:60] for e in events if e.device_type() != cpu]
+    assert all(launch.start_thread_id() == tid for launch in kept), \
+        ("launches filed under another thread", tid, [e.start_thread_id() for e in kept])
+    ops = [e for e in events if e.name() == "links_dst_glue::bias_gelu"]
+    assert len(ops) == 20 and all(op.start_thread_id() == tid for op in ops)
+    for launch in kept:
+        assert any(op.start_ns() <= launch.start_ns() <= op.start_ns() + op.duration_ns()
+                   for op in ops)
