@@ -4,9 +4,7 @@ held against, and the ZeRO, tensor-parallel and pipeline cases of
 tests/test_torch_zero_tp_pp.py. Spawned ranks import this module by name, so
 it imports no jax (tests/conftest.py does)."""
 
-import contextlib
 import copy
-import os
 
 import torch
 
@@ -15,24 +13,6 @@ from links_tpu_torch.core.nn import BF16, F32, leaky_relu
 from links_tpu_torch.objectives.lifter import LifterFrozen, left_right_loss
 from links_tpu_torch.train import parallel, steps
 from links_tpu_torch.train.optim import Adam
-
-
-@contextlib.contextmanager
-def one_thread():
-    """One CPU thread in this process and in each rank it spawns while the
-    block runs (the tests run beside others, and ranks of many threads each
-    would oversubscribe the cores); the settings are restored after."""
-    threads, env = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
-    os.environ["OMP_NUM_THREADS"] = "1"
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
-        if env is None:
-            os.environ.pop("OMP_NUM_THREADS")
-        else:
-            os.environ["OMP_NUM_THREADS"] = env
 
 
 def _grads_fn(case: dict, group):

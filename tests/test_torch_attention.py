@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import module_scratch, one_cpu_thread, scratch  # noqa: F401  (fixtures)
 from links_tpu import models as jmodels
 from links_tpu.config import LifterTrainConfig as JLifterTrainConfig
 from links_tpu.core import nn as jnn
@@ -211,38 +212,38 @@ def test_one_3a_step_makes_20_forward_and_16_backward_block_calls(  # noqa: F811
     assert len(g) == len(list(stacked.parameters())) and np.isfinite(float(aux["loss"]))
 
 
-def test_attention_trainer_files_serve(run, tmp_path):  # noqa: F811
+def test_attention_trainer_files_serve(run, scratch):  # noqa: F811
     """3a --attention for one epoch writes attention-layout files (final and
     best), which lift, lift --scenario (with legs/torso lifters and
     completers beside them) and eval_h36m read; lift --fused refuses them."""
     for name in ("full_flow", "flow_left", "flow_right"):
-        (tmp_path / f"{name}.pt").write_bytes((run / f"{name}.pt").read_bytes())
+        (scratch / f"{name}.pt").write_bytes((run / f"{name}.pt").read_bytes())
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        state = ttrain.main(_args(run, "--attention") + ["--model-dir", str(tmp_path)])
+        state = ttrain.main(_args(run, "--attention") + ["--model-dir", str(scratch)])
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
     assert state.step == 2 and np.isfinite(summary["last"]["pa_left"])
     assert isinstance(state.model.left, AttentionLifter)
     for f in ("left_side_lifter_final.pt", "right_side_lifter_best.pt"):
-        assert isinstance(load_lifter_pt(tmp_path / f), AttentionLifter), f
-    data = ["--data", str(run / "synthetic.pkl"), "--model-dir", str(tmp_path), "--device", "cpu"]
-    pred = tlift.main(data + ["--use-final", "--out", str(tmp_path / "o.npz")])
-    final = StackedLifter(*(load_lifter_pt(tmp_path / f"{s}_side_lifter_final.pt")
+        assert isinstance(load_lifter_pt(scratch / f), AttentionLifter), f
+    data = ["--data", str(run / "synthetic.pkl"), "--model-dir", str(scratch), "--device", "cpu"]
+    pred = tlift.main(data + ["--use-final", "--out", str(scratch / "o.npz")])
+    final = StackedLifter(*(load_lifter_pt(scratch / f"{s}_side_lifter_final.pt")
                             for s in ("left", "right")))
-    with np.load(tmp_path / "o.npz") as z, torch.no_grad():
+    with np.load(scratch / "o.npz") as z, torch.no_grad():
         want = tlifter_obj.lift_left_right_eval(final, torch.from_numpy(z["poses_2d"]))
     np.testing.assert_array_equal(pred.reshape(-1, 51), want.numpy())
     g = torch.Generator().manual_seed(0)
-    save_lifter_pt(Lifter(LEG_JOINTS, 64, generator=g), tmp_path / "leg_lifter.pt")
-    save_lifter_pt(Lifter(TORSO_JOINTS, 64, generator=g), tmp_path / "torso_lifter.pt")
-    (tmp_path / "occlusion_model_weights").mkdir()
+    save_lifter_pt(Lifter(LEG_JOINTS, 64, generator=g), scratch / "leg_lifter.pt")
+    save_lifter_pt(Lifter(TORSO_JOINTS, 64, generator=g), scratch / "torso_lifter.pt")
+    (scratch / "occlusion_model_weights").mkdir()
     for name, spec in COMPLETER_SPECS.items():
         save_completer_pt(Completer(*spec, 64, generator=g),
-                          tmp_path / "occlusion_model_weights" / f"{name}_estimator.pt")
-    occ = tlift.main(data + ["--scenario", "ll", "--out", str(tmp_path / "s.npz")])
+                          scratch / "occlusion_model_weights" / f"{name}_estimator.pt")
+    occ = tlift.main(data + ["--scenario", "ll", "--out", str(scratch / "s.npz")])
     assert occ.shape == pred.shape and np.isfinite(occ).all()
     with contextlib.redirect_stdout(io.StringIO()):
         results = teval.main(data + ["--json"])
     assert np.isfinite(results["pa_mpjpe"])
     with pytest.raises(ValueError, match="attention lifters"):
-        tlift.main(data + ["--fused", "--out", str(tmp_path / "f.npz")])
+        tlift.main(data + ["--fused", "--out", str(scratch / "f.npz")])

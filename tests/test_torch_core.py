@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu.core import geometry as jgeo
 from links_tpu.core import nn as jnn
 from links_tpu.core import skeleton as jsk

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 import dstformer_reference as R
 from links_tpu_torch.cli import lift as tlift
 from links_tpu_torch.cli import serve as tserve

@@ -14,6 +14,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 import dstformer_reference as R
 from links_tpu_torch.core.nn import BF16, F32
 from links_tpu_torch.models import dstformer

@@ -13,7 +13,6 @@ as tests/test_serve.py drives the JAX package's."""
 import contextlib
 import io
 import json
-import shutil
 import threading
 import urllib.request
 
@@ -22,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import one_cpu_thread, scratch  # noqa: F401  (fixtures)
 from links_tpu import ckpt as jckpt
 from links_tpu import models as jmodels
 from links_tpu.cli import export_model as jexport
@@ -194,16 +194,15 @@ def test_mlir_out_writes_the_program(models, tmp_path):
     assert text.count("torch.ops." + OP) == 14 and "8, 34" in text
 
 
-def test_int8_artifact_is_a_third_of_the_f32_one(tmp_path):
+def test_int8_artifact_is_a_third_of_the_f32_one(scratch):
     """At the lifters' width (hidden 1024) the int8 artifact holds a quarter
     of the f32 weight bytes: under 0.35 of the f32 file, as the JAX package's
     end-to-end test asserts of its artifacts."""
     g = torch.Generator().manual_seed(0)
     for side in ("left", "right"):
-        save_lifter_pt(Lifter(11, generator=g), tmp_path / f"{side}_lifter.pt")
-    f32 = _port_export(tmp_path, tmp_path / "f32.pt2")
-    int8 = _port_export(tmp_path, tmp_path / "int8.pt2", "--quant", "int8")
-    shutil.rmtree(tmp_path)  # ~150 MB
+        save_lifter_pt(Lifter(11, generator=g), scratch / f"{side}_lifter.pt")
+    f32 = _port_export(scratch, scratch / "f32.pt2")
+    int8 = _port_export(scratch, scratch / "int8.pt2", "--quant", "int8")
     assert f32["verified"] and int8["verified"]
     assert f32["bytes"] > 50_000_000 and int8["bytes"] < 0.35 * f32["bytes"]
 

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import module_scratch, one_cpu_thread, scratch  # noqa: F401  (fixtures)
 from links_tpu.cli import pack_data as jpack
 from links_tpu.data import native_loader as jloader
 from links_tpu_torch.cli import _common as C
@@ -58,25 +59,15 @@ def _run(module, argv):
 
 
 @pytest.fixture(scope="module")
-def trained(tmp_path_factory):
+def trained(module_scratch):
     """The five trainers run in memory, one epoch each, in one model
-    directory: the inputs each packed run reads (removed afterwards: the
-    full-width run checkpoints take hundreds of MB)."""
-    ws = tmp_path_factory.mktemp("feed")
+    directory: the inputs each packed run reads."""
+    ws = module_scratch("feed")
     write_synthetic_pickle(ws / "synthetic.pkl", n_per_subject=PER_SUBJECT, seed=0,
                            n_test_per_subject=20)
     for module, _, _ in TRAINERS.values():
         _run(module, _args(ws))
-    yield ws
-    shutil.rmtree(ws, ignore_errors=True)
-
-
-@pytest.fixture
-def scratch(tmp_path):
-    """``tmp_path``, removed after the test (trainer runs write full-width
-    checkpoints)."""
-    yield tmp_path
-    shutil.rmtree(tmp_path, ignore_errors=True)
+    return ws
 
 
 def _inputs(trained, ws, name):

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu import models as jmodels
 from links_tpu.core.skeleton import split_data_left_right as j_split
 from links_tpu.ops import fused_sides_forward as j_fused

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu_torch.models.lifters import Lifter, StackedLifter
 from links_tpu_torch.ops import _build
 from links_tpu_torch.ops import fused_infer as K2

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu.cli import _common as J
 from links_tpu_torch.ckpt import run_io
 from links_tpu_torch.cli import _common as C

@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu import ckpt as jckpt
 from links_tpu import models as jmodels
 from links_tpu.cli import lift as jlift

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu import ckpt as jckpt
 from links_tpu import models as jmodels
 from links_tpu.core import nn as jnn

@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu import metrics as jmetrics
 from links_tpu_torch import metrics as tmetrics
 

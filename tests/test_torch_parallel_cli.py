@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_dp
+from _torch_suite import one_cpu_thread, scratch  # noqa: F401  (fixtures)
 from links_tpu_torch.ckpt.torch_io import save_flow_pt
 from links_tpu_torch.cli import pack_data
 from links_tpu_torch.cli import train_full_pose_norm_flow as stage1
@@ -56,26 +56,18 @@ def corpus(tmp_path_factory):
     return ws
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each run, and each rank it spawns, on one CPU thread."""
-    with _torch_dp.one_thread():
-        yield
-
-
 @pytest.fixture
-def model_dir(tmp_path, corpus):
+def model_dir(scratch, corpus):
     """``-> make(name)``: a fresh model directory holding 3a's frozen flows,
     removed after the test (the lifters' run checkpoints are large)."""
     def make(name: str):
-        d = tmp_path / name
+        d = scratch / name
         d.mkdir()
         for flow in FLOWS_3A:
             shutil.copy(corpus / f"{flow}.pt", d)
         return d
 
-    yield make
-    shutil.rmtree(tmp_path, ignore_errors=True)
+    return make
 
 
 def _args(corpus, model_dir, *flags):

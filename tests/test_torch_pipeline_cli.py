@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import module_scratch, one_cpu_thread, scratch  # noqa: F401  (fixtures)
 from links_tpu import ckpt as jckpt
 from links_tpu import flows as jflows
 from links_tpu.objectives import occlusion as jocc
@@ -67,10 +68,10 @@ def _run(module, argv):
 
 
 @pytest.fixture(scope="module")
-def pipeline(tmp_path_factory):
+def pipeline(module_scratch):
     """Stages 1, 2, 3a and 3b, one epoch each, in one model directory; with
     the stage config each trainer ran."""
-    ws = tmp_path_factory.mktemp("pipeline")
+    ws = module_scratch("pipeline")
     write_synthetic_pickle(ws / "synthetic.pkl", n_per_subject=PER_SUBJECT, seed=0,
                            n_test_per_subject=20)
     runs, cfgs = {}, []
@@ -219,14 +220,14 @@ def test_occlusion_trainer_defaults_follow_the_jax_package(pipeline):
     assert len(list(state.model.parameters())) == len(state.opt.mu) == 8 * 16
 
 
-def test_occlusion_trainer_ignores_nll_cap(pipeline, tmp_path):
+def test_occlusion_trainer_ignores_nll_cap(pipeline, scratch):
     """--nll-cap is a flow-term flag: stage 4 accepts and ignores it, as the
     JAX package's resolve_cfg does."""
     ws = pipeline[0]
     for name in ("synthetic.pkl", "left_side_lifter_final.pt", "right_side_lifter_final.pt",
                  "leg_lifter.pt", "torso_lifter.pt"):
-        shutil.copy(ws / name, tmp_path)
-    state, lines = _run(stage4, _args(tmp_path, "--nll-cap", "100"))
+        shutil.copy(ws / name, scratch)
+    state, lines = _run(stage4, _args(scratch, "--nll-cap", "100"))
     assert state.step == 2 and np.isfinite(json.loads(lines[-1])["last"]["loss"])
 
 
@@ -275,11 +276,11 @@ def test_lift_refuses_fused_scenario(pipeline, tmp_path):
                     "cpu", "--fused", "--scenario", "ll", "--out", str(tmp_path / "o.npz")])
 
 
-def test_missing_completers_are_named(pipeline, tmp_path):
+def test_missing_completers_are_named(pipeline, scratch):
     ws = pipeline[0]
     for name in ("left_side_lifter_final.pt", "right_side_lifter_final.pt", "leg_lifter.pt",
                  "torso_lifter.pt"):
-        shutil.copy(ws / name, tmp_path)
+        shutil.copy(ws / name, scratch)
     with pytest.raises(FileNotFoundError, match="train_occlusion_models"):
-        tlift.main(["--data", str(ws / "synthetic.pkl"), "--model-dir", str(tmp_path),
-                    "--device", "cpu", "--scenario", "torso", "--out", str(tmp_path / "o.npz")])
+        tlift.main(["--data", str(ws / "synthetic.pkl"), "--model-dir", str(scratch),
+                    "--device", "cpu", "--scenario", "torso", "--out", str(scratch / "o.npz")])

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu import models as jmodels
 from links_tpu.cli import eval_h36m as jeval
 from links_tpu.cli import lift as jlift

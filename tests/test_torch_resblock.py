@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu.core import nn as jnn
 from links_tpu.experimental import fused_res_block
 from links_tpu.models.lifters import init_res_block, res_block_apply

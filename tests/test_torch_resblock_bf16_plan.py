@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu_torch.core.nn import BF16
 from links_tpu_torch.ops import resblock as K1
 

@@ -18,6 +18,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu.core import nn as jnn
 from links_tpu.experimental import fused_res_block
 from links_tpu.models.lifters import init_res_block, res_block_apply

@@ -11,6 +11,7 @@ import json
 import pytest
 import torch
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu.cli import run_pipeline as jpipe
 from links_tpu_torch.cli import _common as C
 from links_tpu_torch.cli import run_pipeline as tpipe

@@ -16,6 +16,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu_torch.cli import serve as tserve
 from links_tpu_torch.cli.serve import Coalescer
 from links_tpu_torch.config import (

@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_suite import module_scratch, one_cpu_thread, scratch  # noqa: F401  (fixtures)
 from links_tpu import ckpt as jckpt
 from links_tpu import flows as jflows
 from links_tpu_torch.cli import lift as tlift
@@ -24,9 +25,9 @@ PER_SUBJECT = 8  # 5 train subjects x 8 = 40 poses: 2 steps of 16
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def run(module_scratch):
     """A workspace: a synthetic pickle and the seeded JAX flows as FrEIA .pt."""
-    ws = tmp_path_factory.mktemp("train")
+    ws = module_scratch("train")
     write_synthetic_pickle(ws / "synthetic.pkl", n_per_subject=PER_SUBJECT, seed=0,
                            n_test_per_subject=20)
     keys = jax.random.split(jax.random.PRNGKey(0), 3)
@@ -92,13 +93,13 @@ def test_lift_finds_the_trainers_lifters_in_model_dir(run, trained, tmp_path):
     np.testing.assert_array_equal(pred, want)
 
 
-def test_seed_decides_the_run(run, trained, tmp_path):
+def test_seed_decides_the_run(run, trained, scratch):
     """The same --seed gives the same weights: init and every draw come from
     generators seeded by it."""
     state, _ = trained
     for name in ("full_flow", "flow_left", "flow_right"):
-        shutil.copy(run / f"{name}.pt", tmp_path)
-    again = ttrain.main(_args(run, "--model-dir", str(tmp_path)))
+        shutil.copy(run / f"{name}.pt", scratch)
+    again = ttrain.main(_args(run, "--model-dir", str(scratch)))
     for a, b in zip(state.model.parameters(), again.model.parameters()):
         assert np.array_equal(a.detach().numpy(), b.detach().numpy())
 
@@ -128,17 +129,17 @@ def test_unported_flags_are_refused(run, flags, message, monkeypatch):
 
 
 @pytest.mark.parametrize("bone_means", ["data", "mpi_vnect_interesting"])
-def test_bone_means_choices_train(run, trained, tmp_path, bone_means):
+def test_bone_means_choices_train(run, trained, scratch, bone_means):
     """3a trains with the prior means of the train split's 3D ground truth and
     with the MPI means; the bone prior differs from the H36M run's."""
     for name in ("full_flow", "flow_left", "flow_right"):
-        shutil.copy(run / f"{name}.pt", tmp_path)
+        shutil.copy(run / f"{name}.pt", scratch)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        state = ttrain.main(_args(run, "--model-dir", str(tmp_path), "--bone-means", bone_means))
+        state = ttrain.main(_args(run, "--model-dir", str(scratch), "--bone-means", bone_means))
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
     assert state.step == 2 and all(np.isfinite(v) for v in summary["last"].values())
-    assert (tmp_path / "left_side_lifter_final.pt").exists()
+    assert (scratch / "left_side_lifter_final.pt").exists()
     h36m = json.loads(trained[1][-1])["last"]
     assert summary["last"]["bl_prior"] != pytest.approx(h36m["bl_prior"], rel=1e-3)
 

@@ -10,6 +10,7 @@ import types
 
 import pytest
 
+from _torch_suite import one_cpu_thread  # noqa: F401  (an autouse fixture)
 from links_tpu_torch.cli import train_full_pose_norm_flow as stage1
 from links_tpu_torch.cli import train_left_right_lifter as stage3a
 from links_tpu_torch.cli import train_leg_torso_lifter as stage3b

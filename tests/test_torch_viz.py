@@ -24,6 +24,7 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from _torch_suite import one_cpu_thread  # noqa: E402, F401  (an autouse fixture)
 from links_tpu import ckpt as jckpt  # noqa: E402
 from links_tpu import flows as jflows  # noqa: E402
 from links_tpu import metrics as jm  # noqa: E402

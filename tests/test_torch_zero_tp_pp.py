@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import _torch_dp
+from _torch_suite import module_scratch, one_cpu_thread  # noqa: F401  (fixtures)
 from links_tpu import flows as jflows
 from links_tpu import models as jmodels
 from links_tpu.config import LifterTrainConfig as JLifterTrainConfig
@@ -237,7 +238,7 @@ def jax_models():
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory, jax_models):
+def runs(module_scratch, jax_models):
     """-> ``run(W)``: every case on W gloo ranks (one spawn, made when first
     asked for) and in this process, as (cases, one-process results, each
     rank's results)."""
@@ -245,16 +246,16 @@ def runs(tmp_path_factory, jax_models):
 
     def run(world: int):
         if world not in done:
-            tmp = tmp_path_factory.mktemp(f"ztp{world}")
+            tmp = module_scratch(f"ztp{world}")
             cases = _cases(world, jax_models)
             names = list(cases)
             torch.save(dict(enumerate(cases.values())), tmp / "cases.pt")
-            with _torch_dp.one_thread():  # the same in the ranks and here
-                parallel.spawn(_torch_dp.parallel_worker, (str(tmp / "cases.pt"),
-                                                           str(tmp / "rank{rank}.pt")),
-                               ["cpu"] * world)
-                want = {name: _one_process(case) for name, case in cases.items()
-                        if "jax" not in name}
+            # the ranks inherit this process's one thread (one_cpu_thread)
+            parallel.spawn(_torch_dp.parallel_worker, (str(tmp / "cases.pt"),
+                                                       str(tmp / "rank{rank}.pt")),
+                           ["cpu"] * world)
+            want = {name: _one_process(case) for name, case in cases.items()
+                    if "jax" not in name}
             got = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
             done[world] = (cases, want, [{names[i]: v for i, v in g.items()} for g in got])
         return done[world]
